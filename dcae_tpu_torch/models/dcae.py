@@ -1,0 +1,216 @@
+"""DCAE model: dictionary-based channel-autoregressive learned image codec.
+
+    forward(x) -> {x_hat, likelihoods{y, z}, para{means, scales, y, ...}}
+
+plus the pieces the real codec drives (encode_analysis, decode_start /
+decode_step / decode_end). Tensors are NHWC, as in the JAX package.
+
+Precision split: `dtype` (bf16 on the card) applies only to the one-sided
+transforms g_a / h_a (encoder) and g_s (decoder); their outputs are cast to
+f32 and quantized once, so their rounding cannot make encoder and decoder
+disagree. The entropy-side nets (h_z_s1/2, dictionary attention, slice
+context nets) always run f32: encoder and decoder must reproduce mu, sigma
+and the LRP bitwise, and both call the same functions here.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+from torch import nn
+
+from dcae_tpu_torch.config import DCAEConfig
+from dcae_tpu_torch.entropy import gaussian
+from dcae_tpu_torch.entropy.bottleneck import EntropyBottleneck
+from dcae_tpu_torch.entropy.ops import ste_round
+from dcae_tpu_torch.models.transforms import (GAnalysis, GSynthesis,
+                                              HyperAnalysis, HyperSynthesis,
+                                              SliceNet)
+from dcae_tpu_torch.ops.blocks import WMSA, Scale
+from dcae_tpu_torch.ops.dictionary import DictionaryCrossAttention
+from dcae_tpu_torch.ops.layers import reset_layer, trunc_normal_
+
+
+class DCAE(nn.Module):
+    def __init__(self, cfg: DCAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.g_a = GAnalysis(cfg)
+        self.g_s = GSynthesis(cfg)
+        self.h_a = HyperAnalysis(cfg)
+        self.h_z_s1 = HyperSynthesis(cfg)   # latent scales
+        self.h_z_s2 = HyperSynthesis(cfg)   # latent means
+        self.dt = nn.Parameter(torch.empty(cfg.dict_num, cfg.dict_dim))
+        S = cfg.num_slices
+        self.dt_cross_attention = nn.ModuleList(
+            DictionaryCrossAttention(
+                cfg.query_dim(i), cfg.M, head_num=cfg.dict_head_num,
+                head_dim=cfg.dict_head_dim, mlp_rate=cfg.mlp_rate,
+                qkv_bias=cfg.qkv_bias) for i in range(S))
+        self.cc_mean_transforms = nn.ModuleList(
+            SliceNet(cfg, cfg.support_dim(i)) for i in range(S))
+        self.cc_scale_transforms = nn.ModuleList(
+            SliceNet(cfg, cfg.support_dim(i)) for i in range(S))
+        self.lrp_transforms = nn.ModuleList(
+            SliceNet(cfg, cfg.support_dim(i) + cfg.slice_dim)
+            for i in range(S))
+        self.entropy_bottleneck = EntropyBottleneck(
+            cfg.eb_channels, cfg.eb_filters, cfg.eb_init_scale,
+            cfg.eb_tail_mass)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded init with the JAX package's initializers: torch's layer
+        defaults, trunc-normal(0.02) relative-position tables, unit scales,
+        a N(0, 1) dictionary, the bottleneck's own init."""
+        for m in self.modules():
+            reset_layer(m, generator)
+            if isinstance(m, WMSA):
+                trunc_normal_(m.relative_position_params, 0.02, generator)
+            elif isinstance(m, Scale):
+                m.scale.fill_(1.0)
+            elif isinstance(m, DictionaryCrossAttention):
+                m.scale.fill_(1.0)
+            elif isinstance(m, EntropyBottleneck):
+                m.reset_parameters(generator)
+        self.dt.copy_(torch.randn(self.dt.shape, generator=generator))
+
+    def set_transform_dtype(self, dtype: torch.dtype) -> "DCAE":
+        """Run (and store) the one-sided transforms g_a, h_a, g_s in dtype."""
+        for m in (self.g_a, self.h_a, self.g_s):
+            m.to(dtype)
+        return self
+
+    # ------------------------------------------------------------ pieces --
+
+    @staticmethod
+    def _run(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """A transform in its own parameter dtype; the result in f32."""
+        dtype = next(module.parameters()).dtype
+        return module(x.to(dtype)).to(torch.float32)
+
+    def hyper_synthesis(self, z_hat: torch.Tensor):
+        return self.h_z_s1(z_hat), self.h_z_s2(z_hat)
+
+    def eb_medians(self) -> torch.Tensor:
+        return self.entropy_bottleneck.medians()
+
+    def _slice_context(self, i: int, latent_scales, latent_means,
+                       y_hat_slices: List[torch.Tensor], y_h: int, y_w: int):
+        """Context of slice i: query -> dictionary cross-attention ->
+        support -> (support, mu, sigma)."""
+        support_slices = y_hat_slices[: self.cfg.max_support_slices]
+        query = torch.cat([latent_scales, latent_means, *support_slices],
+                          dim=-1)
+        dict_info = self.dt_cross_attention[i](query, self.dt)
+        support = torch.cat([query, dict_info], dim=-1)
+        mu = self.cc_mean_transforms[i](support)[:, :y_h, :y_w]
+        sigma = self.cc_scale_transforms[i](support)[:, :y_h, :y_w]
+        return support, mu, sigma
+
+    def _slice_lrp(self, i: int, support, y_hat_slice) -> torch.Tensor:
+        lrp_in = torch.cat([support, y_hat_slice], dim=-1)
+        return 0.5 * torch.tanh(self.lrp_transforms[i](lrp_in))
+
+    # ------------------------------------------------- eval-mode forward --
+
+    def encode_half(self, x: torch.Tensor):
+        """(y, z_hat, z_likelihoods): g_a, h_a, entropy bottleneck."""
+        y = self._run(self.g_a, x)
+        z = self._run(self.h_a, y)
+        _, z_likelihoods = self.entropy_bottleneck(z)
+        medians = self.eb_medians().reshape(1, 1, 1, -1)
+        z_hat = ste_round(z - medians) + medians
+        return y, z_hat, z_likelihoods
+
+    def decode_half(self, y: torch.Tensor, z_hat: torch.Tensor):
+        """(x_hat, y_likelihoods, means, scales, y_hat) from raw y and the
+        quantized z_hat."""
+        cfg = self.cfg
+        _, y_h, y_w, _ = y.shape
+        latent_scales, latent_means = self.hyper_synthesis(z_hat)
+        y_hat_slices: List[torch.Tensor] = []
+        likes, mus, sigmas = [], [], []
+        for i, y_slice in enumerate(y.split(cfg.slice_dim, dim=-1)):
+            support, mu, sigma = self._slice_context(
+                i, latent_scales, latent_means, y_hat_slices, y_h, y_w)
+            mus.append(mu)
+            sigmas.append(sigma)
+            _, like = gaussian.apply(y_slice, sigma, mu, cfg.scales_min)
+            likes.append(like)
+            y_hat_slice = ste_round(y_slice - mu) + mu
+            y_hat_slice = y_hat_slice + self._slice_lrp(i, support,
+                                                        y_hat_slice)
+            y_hat_slices.append(y_hat_slice)
+        y_hat = torch.cat(y_hat_slices, dim=-1)
+        x_hat = self._run(self.g_s, y_hat)
+        return (x_hat, torch.cat(likes, dim=-1), torch.cat(mus, dim=-1),
+                torch.cat(sigmas, dim=-1), y_hat)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        y, z_hat, z_likelihoods = self.encode_half(x)
+        x_hat, y_likelihoods, means, scales, y_hat = self.decode_half(y,
+                                                                      z_hat)
+        return {
+            "x_hat": x_hat,
+            "likelihoods": {"y": y_likelihoods, "z": z_likelihoods},
+            "para": {"means": means, "scales": scales, "y": y,
+                     "y_hat": y_hat, "z_hat": z_hat},
+        }
+
+    # ------------------------------------------------ real-codec pieces --
+
+    def encode_analysis(self, x: torch.Tensor):
+        """Encoder front half of the staged compress: (y, z_symbols, z_hat);
+        the rest replays the decoder's own functions."""
+        y = self._run(self.g_a, x)
+        z = self._run(self.h_a, y)
+        medians = self.eb_medians().reshape(1, 1, 1, -1)
+        z_symbols = torch.round(z - medians).to(torch.int32)
+        z_hat = z_symbols.to(torch.float32) + medians
+        return y, z_symbols, z_hat
+
+    def _ctx_and_indexes(self, i: int, latent_scales, latent_means,
+                         y_hat_prev: torch.Tensor, scale_table):
+        prev = list(y_hat_prev.split(self.cfg.slice_dim, dim=-1)) if i else []
+        y_h, y_w = latent_scales.shape[1], latent_scales.shape[2]
+        support, mu, sigma = self._slice_context(
+            i, latent_scales, latent_means, prev, y_h, y_w)
+        indexes = gaussian.build_indexes(sigma, scale_table,
+                                         self.cfg.scales_min)
+        return support, mu, indexes
+
+    def _apply_symbols(self, i: int, support, mu, symbols) -> torch.Tensor:
+        y_hat_slice = symbols.to(torch.float32) + mu
+        return y_hat_slice + self._slice_lrp(i, support, y_hat_slice)
+
+    def decode_start(self, z_hat: torch.Tensor, scale_table):
+        """Hyper synthesis + slice-0 context: (ls, lm, support0, mu0,
+        indexes0)."""
+        latent_scales, latent_means = self.hyper_synthesis(z_hat)
+        empty = latent_scales[..., :0]
+        support, mu, indexes = self._ctx_and_indexes(
+            0, latent_scales, latent_means, empty, scale_table)
+        return latent_scales, latent_means, support, mu, indexes
+
+    def decode_step(self, i: int, latent_scales, latent_means, y_hat_prev,
+                    support_prev, mu_prev, symbols_prev, scale_table):
+        """Finish slice i-1 with its decoded symbols, then build slice i's
+        context: (y_hat, support, mu, indexes)."""
+        y_hat_slice = self._apply_symbols(i - 1, support_prev, mu_prev,
+                                          symbols_prev)
+        y_hat = torch.cat([y_hat_prev, y_hat_slice], dim=-1)
+        support, mu, indexes = self._ctx_and_indexes(
+            i, latent_scales, latent_means, y_hat, scale_table)
+        return y_hat, support, mu, indexes
+
+    def decode_end(self, y_hat_prev, support_last, mu_last, symbols_last
+                   ) -> torch.Tensor:
+        """Apply the last slice and synthesize the image, clipped to
+        [0, 1]."""
+        y_hat_slice = self._apply_symbols(self.cfg.num_slices - 1,
+                                          support_last, mu_last,
+                                          symbols_last)
+        y_hat = torch.cat([y_hat_prev, y_hat_slice], dim=-1)
+        return torch.clamp(self._run(self.g_s, y_hat), 0.0, 1.0)

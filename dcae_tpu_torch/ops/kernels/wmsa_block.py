@@ -1,0 +1,137 @@
+"""Swin attention half-block on 8x8 windows: out = rs * x + WMSA(LN x).
+
+Counterpart of the TPU kernel `dcae_tpu/ops/pallas/wmsa_v4.py::
+fused_wmsa_block_v4`. `wmsa_block` launches the CUDA kernel
+(csrc/wmsa_block.cu) for CUDA tensors and runs `wmsa_block_ref`, the plain
+PyTorch statement of the same math, for CPU tensors.
+
+Weights are in torch layout (the reference's state dict): wqkv (3C, C)
+packed [q | k | v], each head-major (channel = head * head_dim + d);
+wproj (C, C); rel (heads, 15, 15).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dcae_tpu_torch.ops.kernels import _build
+
+WINDOW = 8
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def relative_position_bias(rel: torch.Tensor, window: int = WINDOW
+                           ) -> torch.Tensor:
+    """(heads, P, P) bias: table[h, dy + w - 1, dx + w - 1] for query token
+    (ri, ci) and key token (rj, cj), dy = ri - rj, dx = ci - cj."""
+    coords = np.array([[i, j] for i in range(window) for j in range(window)])
+    idx = coords[:, None, :] - coords[None, :, :] + window - 1
+    return rel[:, torch.as_tensor(idx[..., 0]), torch.as_tensor(idx[..., 1])]
+
+
+def shifted_window_mask(nh: int, nw: int, window: int = WINDOW
+                        ) -> np.ndarray:
+    """(nh*nw, P, P) bool, True = forbidden: in the rolled frame a
+    bottom-row window splits its rows at s = w - w//2 and a right-column
+    window its columns; the two parts must not attend to each other."""
+    s = window - window // 2
+    r = np.arange(window * window) // window
+    c = np.arange(window * window) % window
+    rows = (r[:, None] < s) != (r[None, :] < s)
+    cols = (c[:, None] < s) != (c[None, :] < s)
+    mask = np.zeros((nh, nw, window * window, window * window), bool)
+    mask[-1, :] |= rows
+    mask[:, -1] |= cols
+    return mask.reshape(nh * nw, window * window, window * window)
+
+
+def wmsa_block_ref(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, *,
+                   heads: int, shifted: bool) -> torch.Tensor:
+    """Plain PyTorch statement of the kernel. LN and softmax in f32; bf16
+    inputs get bf16 operands at each product input (the kernel's rounding
+    points), f32 inputs stay f32. Returns x's dtype."""
+    w = WINDOW
+    B, H, W, C = x.shape
+    hd = C // heads
+    rnd = _bf16_round if x.dtype == torch.bfloat16 else (lambda t: t)
+    f = lambda t: t.to(torch.float32)  # noqa: E731
+    xs = f(x)
+    if shifted:
+        xs = torch.roll(xs, shifts=(-(w // 2), -(w // 2)), dims=(1, 2))
+    xn = rnd(F.layer_norm(xs, (C,), f(ln_w), f(ln_b), 1e-5))
+    nh, nw = H // w, W // w
+    xw = xn.reshape(B, nh, w, nw, w, C).permute(0, 1, 3, 2, 4, 5)
+    xw = xw.reshape(B, nh * nw, w * w, C)
+    qkv = rnd(torch.matmul(xw, f(wqkv).t()) + f(bqkv))
+    q, k, v = (t.reshape(B, nh * nw, w * w, heads, hd).permute(0, 3, 1, 2, 4)
+               for t in qkv.split(C, dim=-1))          # (B, heads, N, P, hd)
+    sim = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
+    sim = sim + relative_position_bias(f(rel))[None, :, None]
+    if shifted:
+        mask = torch.as_tensor(shifted_window_mask(nh, nw), device=x.device)
+        sim = sim.masked_fill(mask[None, None], float("-inf"))
+    probs = rnd(torch.softmax(sim, dim=-1))
+    o = rnd(torch.matmul(probs, v).permute(0, 2, 3, 1, 4).reshape(
+        B, nh * nw, w * w, C))
+    res = torch.matmul(o, f(wproj).t()) + f(bproj)
+    res = res.reshape(B, nh, nw, w, w, C).permute(0, 1, 3, 2, 4, 5)
+    out = xs * f(rs) + res.reshape(B, H, W, C)
+    if shifted:
+        out = torch.roll(out, shifts=(w // 2, w // 2), dims=(1, 2))
+    return out.to(x.dtype)
+
+
+@functools.cache
+def _entry():
+    lib = _build.load_kernel("wmsa_block")
+    return (_build.bind(lib, "dcae_wmsa_block", 10, 7),
+            _build.bind_query(lib, "dcae_wmsa_block_smem", 3))
+
+
+def wmsa_block(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, *,
+               heads: int, shifted: bool) -> torch.Tensor:
+    """out = rs * x + WMSA(LN x) on 8x8 windows (shifted SW windows when
+    `shifted`). x: (B, H, W, C) with H, W multiples of 8. CPU tensors run
+    wmsa_block_ref; CUDA tensors launch the kernel or raise."""
+    params = (ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel)
+    B, H, W, C = x.shape
+    if H % WINDOW or W % WINDOW or C % heads:
+        raise ValueError(f"wmsa_block: shape {tuple(x.shape)} with {heads} "
+                         f"heads needs H, W multiples of {WINDOW}")
+    if x.device.type == "cpu":
+        return wmsa_block_ref(x, *params, heads=heads, shifted=shifted)
+    if x.device.type != "cuda":
+        raise ValueError(f"wmsa_block: no kernel for {x.device}")
+    x = x.contiguous()
+    _build.kernel_operands("wmsa_block", x, params)
+    bf16 = x.dtype == torch.bfloat16
+    # f32: CUDA-core kernel, float4 rows; bf16: tensor-core kernel, 16-deep
+    # products over C and 8-wide head tiles
+    widths_ok = (C % 16 == 0 and (C // heads) % 8 == 0) if bf16 else \
+        C % 4 == 0
+    if not widths_ok or tuple(wqkv.shape) != (3 * C, C) or \
+            tuple(rel.shape) != (heads, 2 * WINDOW - 1, 2 * WINDOW - 1):
+        raise ValueError("wmsa_block: unsupported widths or weight shapes")
+    fn, smem = _entry()
+    if smem(C, heads, int(bf16)) > _build.SMEM_LIMIT:
+        raise ValueError(f"wmsa_block: C={C} needs more shared memory than "
+                         "a block has")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), *(p.data_ptr() for p in params),
+                out.data_ptr(), B, H, W, C, heads, int(shifted), int(bf16),
+                stream)
+    _build.check(rc, "wmsa_block")
+    wmsa_block.launches += 1
+    return out
+
+
+wmsa_block.launches = 0
