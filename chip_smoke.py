@@ -9,16 +9,26 @@ Phases, in order:
              compiler per source, all at once) into build/.
   kernels    each kernel against its plain PyTorch version on the card at
              the main path's shapes (batch 2 of 768x512), with times, the
-             least time the card could take (bound) and, for wmsa_block, an
-             SDPA call as yardstick; the f32 DCA conv_glu must be bitwise
-             repeatable.
+             least time the card could take (bound) and, for wmsa_block and
+             wmsa_attention, an SDPA call as yardstick; the f32 DCA
+             conv_glu must be bitwise repeatable.
   reference  the full-width f32 model on the card against the same weights
              on the CPU (plain versions), on a 128x128 image.
-  slice      the full-size bf16 codec (seeded random weights): compress 2
-             structured 768x512 images, write and read .bin files,
-             decompress; the decoder's per-slice indexes and symbols must
-             equal the encoder's, and the launch counters must show that
-             both kernels ran on the main path.
+  slice      the full-size bf16 codec (seeded random weights) on 2
+             structured 768x512 images, in three parts:
+             staged     compress, write and read .bin files, decompress;
+                        the decoder's per-slice indexes and symbols must
+                        equal the encoder's;
+             certified  self_check() must certify the split or fused
+                        encoder; that mode's streams must equal the staged
+                        ones and decode exactly; compress_with_indexes then
+                        decompress(indexes=...) must give the per-slice
+                        decoder's x_hat bitwise;
+             attention-only  DCAEConfig(fused_attention_block=False): exact
+                        decode, bpp within 1% and PSNR within 0.1 dB of the
+                        staged part.
+             Every path runs with the launch counters set to 0 just before
+             it and read just after; each must show its kernels.
   profile    (only with --phase profile) device time of one slice run by
              kernel, from torch.profiler.
 
@@ -40,13 +50,14 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 non-tensor
-# max|kernel - plain| / max|plain|: ~2x / ~6x the largest errors measured
-# on an H100 (4.4e-3 in bf16, 1.7e-6 in f32; PERF.md), well inside the
-# first bars of 3e-2 / 1e-4
+# max|kernel - plain| / max|plain|: ~1.7x / ~6x the largest errors
+# measured on an H100 (6.0e-3 in bf16, wmsa_attention stage 2; 1.7e-6 in
+# f32, the DCA conv_glu; PERF.md), well inside the first bars of 3e-2 / 1e-4
 TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
 # (label, H, W, C, heads, shifted) at batch 2 of 768x512 images, and how
-# often one compress + one decompress launches that shape (g_a + g_s)
+# often one compress + one decompress launches that shape (g_a + g_s): by
+# wmsa_block by default, by wmsa_attention under fused_attention_block=False
 WMSA_CASES = [
     ("stage1 W", 256, 384, 96, 12, False, 2),
     ("stage2 W", 128, 192, 144, 9, False, 2),
@@ -168,41 +179,54 @@ def sdpa_yardstick(x, p, heads, shifted):
 def kernel_phase(gen) -> dict:
     import torch
     from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu, conv_glu_ref
+    from dcae_tpu_torch.ops.kernels.wmsa_attention import (
+        wmsa_attention, wmsa_attention_ref)
     from dcae_tpu_torch.ops.kernels.wmsa_block import (wmsa_block,
                                                        wmsa_block_ref)
 
-    results = {"wmsa_block": [], "conv_glu": []}
-    for label, H, W, C, heads, shifted, per_run in WMSA_CASES:
-        for dtype in ("bfloat16", "float32"):
-            x, p = wmsa_inputs(H, W, C, heads, getattr(torch, dtype), gen)
-            kw = dict(heads=heads, shifted=shifted)
-            got = wmsa_block(x, *p, **kw)
-            want = wmsa_block_ref(x, *p, **kw)
-            torch.cuda.synchronize()
-            err = rel_err(got, want)
-            ok = bool(torch.isfinite(got.float()).all()) and err <= TOL[dtype]
-            tokens = BATCH * H * W
-            esize = x.element_size()
-            nbytes = 2 * x.numel() * esize + sum(t.numel() for t in p) * esize
-            flops = tokens * (8 * C * C + 4 * 64 * C)
-            b_ms, b_by = bound(nbytes, flops, dtype)
-            row = {"case": f"{label} {dtype}", "rel_err": err,
-                   "max_abs_err": float((got.float() - want.float()).abs()
-                                        .max()),
-                   "tol": TOL[dtype], "ok": ok, "main_path": dtype ==
-                   "bfloat16", "per_run": per_run,
-                   "ms": time_ms(lambda: wmsa_block(x, *p, **kw)),
-                   "plain_ms": time_ms(lambda: wmsa_block_ref(x, *p, **kw),
-                                       iters=3, warmup=1),
-                   "library_ms": time_ms(sdpa_yardstick(x, p, heads,
-                                                        shifted)),
-                   "bound_ms": b_ms, "bound_by": b_by}
-            print(f"wmsa_block {row['case']}: rel err {err:.3e} (tol "
-                  f"{TOL[dtype]:.0e}) ms {row['ms']:.3f} plain "
-                  f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} "
-                  f"bound {b_ms:.4f} ({b_by})", flush=True)
-            results["wmsa_block"].append(row)
-            del x, p, got, want
+    # wmsa_attention takes (x, wqkv, bqkv, wproj, bproj, rel): the block's
+    # weights without ln_w, ln_b, rs
+    wmsa_kernels = [("wmsa_block", wmsa_block, wmsa_block_ref, 0),
+                    ("wmsa_attention", wmsa_attention, wmsa_attention_ref,
+                     3)]
+    results = {"wmsa_block": [], "conv_glu": [], "wmsa_attention": []}
+    for name, fn, ref, skip in wmsa_kernels:
+        for label, H, W, C, heads, shifted, per_run in WMSA_CASES:
+            for dtype in ("bfloat16", "float32"):
+                x, p = wmsa_inputs(H, W, C, heads, getattr(torch, dtype),
+                                   gen)
+                lib = sdpa_yardstick(x, p, heads, shifted)
+                p = p[skip:]
+                kw = dict(heads=heads, shifted=shifted)
+                got = fn(x, *p, **kw)
+                want = ref(x, *p, **kw)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                ok = bool(torch.isfinite(got.float()).all()) and \
+                    err <= TOL[dtype]
+                tokens = BATCH * H * W
+                esize = x.element_size()
+                nbytes = 2 * x.numel() * esize + \
+                    sum(t.numel() for t in p) * esize
+                # qkv 6 C^2, proj 2 C^2, attention 4 * 64 * C a token
+                flops = tokens * (8 * C * C + 4 * 64 * C)
+                b_ms, b_by = bound(nbytes, flops, dtype)
+                row = {"case": f"{label} {dtype}", "rel_err": err,
+                       "max_abs_err": float((got.float() - want.float())
+                                            .abs().max()),
+                       "tol": TOL[dtype], "ok": ok,
+                       "main_path": dtype == "bfloat16", "per_run": per_run,
+                       "ms": time_ms(lambda: fn(x, *p, **kw)),
+                       "plain_ms": time_ms(lambda: ref(x, *p, **kw),
+                                           iters=3, warmup=1),
+                       "library_ms": time_ms(lib),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                print(f"{name} {row['case']}: rel err {err:.3e} (tol "
+                      f"{TOL[dtype]:.0e}) ms {row['ms']:.3f} plain "
+                      f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} "
+                      f"bound {b_ms:.4f} ({b_by})", flush=True)
+                results[name].append(row)
+                del x, p, got, want, lib
     for label, H, W, C, hidden, dtype, per_run in CONV_GLU_CASES:
         x, p = conv_glu_inputs(H, W, C, hidden, getattr(torch, dtype), gen)
         got = conv_glu(x, *p)
@@ -241,12 +265,15 @@ def kernel_phase(gen) -> dict:
 
 def kernel_summary(results: dict, launches: dict) -> list:
     """One entry per kernel: its time over one compress + decompress at
-    the main path's shapes (per-shape time x launches of that shape)."""
+    the shapes of the path that runs it (per-shape time x launches of that
+    shape); launches as counted on that path."""
     meta = {
         "wmsa_block": ("dcae_tpu_torch/csrc/wmsa_block.cu",
                        "dcae_tpu/ops/pallas/wmsa_v4.py:168"),
         "conv_glu": ("dcae_tpu_torch/csrc/conv_glu.cu",
                      "dcae_tpu/ops/pallas/conv_glu.py:190"),
+        "wmsa_attention": ("dcae_tpu_torch/csrc/wmsa_block.cu",
+                           "dcae_tpu/ops/pallas/wmsa_v3.py:215"),
     }
     out = []
     for name, rows in results.items():
@@ -333,39 +360,79 @@ def synthetic_kodak(n: int, h: int = 512, w: int = 768,
     return (np.clip(imgs, 0, 1) * 255).round().astype(np.uint8)
 
 
-def slice_phase() -> dict:
-    import torch
-    from dcae_tpu_torch.config import DCAEConfig
-    from dcae_tpu_torch.models.codec import DCAECodec
+def _wrappers() -> dict:
     from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu
+    from dcae_tpu_torch.ops.kernels.wmsa_attention import wmsa_attention
     from dcae_tpu_torch.ops.kernels.wmsa_block import wmsa_block
+
+    return {"wmsa_block": wmsa_block, "conv_glu": conv_glu,
+            "wmsa_attention": wmsa_attention}
+
+
+def counted(fn):
+    """Run fn() with every launch counter set to 0 just before it, then
+    synchronize; returns (result, counts read just after, host ms)."""
+    import torch
+
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, {k: w.launches for k, w in wrappers.items()}, ms
+
+
+def median_ms(fn, first_ms: float, per: int) -> tuple:
+    """Median host ms per image of fn() over the counted run plus four
+    more (each synchronized), and the five samples."""
+    import torch
+
+    runs = [first_ms / per]
+    for _ in range(4):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3 / per)
+    return float(np.median(runs)), runs
+
+
+def exact(enc_record, dec_record, n: int) -> bool:
+    return len(enc_record) == len(dec_record) == n and all(
+        np.array_equal(ei, di) and np.array_equal(es, ds)
+        for (ei, es), (di, ds) in zip(enc_record, dec_record))
+
+
+def check_counts(what: str, counts: dict, want: dict) -> None:
+    if counts != want:
+        fail(f"{what}: launch counts {counts}, want {want}")
+
+
+def quality(x_hat, imgs: np.ndarray, nbytes: int) -> tuple:
+    """(bpp, PSNR dB) of a decode; fails unless x_hat is finite and of the
+    images' shape."""
+    x_hat = x_hat.float().cpu().numpy()
+    ref = imgs.astype(np.float32) / 255.0
+    if x_hat.shape != ref.shape or not np.isfinite(x_hat).all():
+        fail("x_hat is not finite or has the wrong shape")
+    mse = float(np.mean((x_hat - ref) ** 2))
+    B, H, W, _ = imgs.shape
+    return nbytes * 8 / (B * H * W), 10 * np.log10(1.0 / max(mse, 1e-20))
+
+
+def run_staged(codec, imgs: np.ndarray, label: str, want: dict) -> dict:
+    """The staged compress -> .bin files -> per-slice decompress, counted
+    and timed; exact decode and the launch counts `want` per direction."""
     from dcae_tpu_torch.runtime.container import read_bin, save_bin
 
-    cfg = DCAEConfig()
-    t0 = time.perf_counter()
-    codec = DCAECodec(cfg, dtype=torch.bfloat16, seed=0)
-    codec.update()
-    print(f"slice: codec built + tables baked in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    imgs = synthetic_kodak(BATCH)
+    cfg = codec.cfg
     B, H, W, _ = imgs.shape
-
     codec.decompress(**_strings(codec.compress(imgs)))   # warm-up, uncounted
-    torch.cuda.synchronize()
 
-    def reset():
-        wmsa_block.launches = 0
-        conv_glu.launches = 0
-
-    reset()
     enc_record: list = []
-    t0 = time.perf_counter()
-    enc = codec.compress(imgs, record=enc_record)
-    torch.cuda.synchronize()
-    enc_ms = (time.perf_counter() - t0) * 1e3 / B
-    enc_counts = {"wmsa_block": wmsa_block.launches,
-                  "conv_glu": conv_glu.launches}
-
+    enc, enc_counts, enc_ms = counted(
+        lambda: codec.compress(imgs, mode="staged", record=enc_record))
     with tempfile.TemporaryDirectory(prefix="dcae_smoke_") as tmp:
         y_strings, z_strings = [], []
         nbytes = 0
@@ -377,59 +444,134 @@ def slice_phase() -> dict:
             strings, z_shape, _, size = read_bin(path, cfg.pad_multiple,
                                                  cfg.z_downsample)
             if tuple(z_shape) != tuple(enc["shape"]) or size != (H, W):
-                fail(f".bin header: {z_shape} {size}")
+                fail(f"{label}: .bin header: {z_shape} {size}")
             y_strings.append(strings[0][0])
             z_strings.append(strings[1][0])
 
-    reset()
     dec_record: list = []
-    t0 = time.perf_counter()
-    dec = codec.decompress([y_strings, z_strings], z_shape,
-                           record=dec_record)
-    x_hat = dec["x_hat"]
-    torch.cuda.synchronize()
-    dec_ms = (time.perf_counter() - t0) * 1e3 / B
-    dec_counts = {"wmsa_block": wmsa_block.launches,
-                  "conv_glu": conv_glu.launches}
-
-    # four more timed round trips after the counted one: median of five
-    enc_runs, dec_runs = [enc_ms], [dec_ms]
-    for _ in range(4):
-        t0 = time.perf_counter()
-        again = codec.compress(imgs)
-        torch.cuda.synchronize()
-        enc_runs.append((time.perf_counter() - t0) * 1e3 / B)
-        t0 = time.perf_counter()
-        codec.decompress(**_strings(again))
-        torch.cuda.synchronize()
-        dec_runs.append((time.perf_counter() - t0) * 1e3 / B)
-    codec.close()
-
-    exact = len(enc_record) == len(dec_record) == cfg.num_slices and all(
-        np.array_equal(ei, di) and np.array_equal(es, ds)
-        for (ei, es), (di, ds) in zip(enc_record, dec_record))
-    x_hat = x_hat.float().cpu().numpy()
-    ref = imgs.astype(np.float32) / 255.0
-    mse = float(np.mean((x_hat - ref) ** 2))
-    psnr = 10 * np.log10(1.0 / max(mse, 1e-20))
-    bpp = nbytes * 8 / (B * H * W)
+    dec, dec_counts, dec_ms = counted(
+        lambda: codec.decompress([y_strings, z_strings], z_shape,
+                                 record=dec_record))
+    enc_med, enc_runs = median_ms(lambda: codec.compress(imgs, mode="staged"),
+                                  enc_ms, B)
+    dec_med, dec_runs = median_ms(lambda: codec.decompress(**_strings(enc)),
+                                  dec_ms, B)
+    ok = exact(enc_record, dec_record, cfg.num_slices)
+    bpp, psnr = quality(dec["x_hat"], imgs, nbytes)
     res = {"bpp": bpp, "psnr_db": psnr,
-           "encode_ms_per_image": float(np.median(enc_runs)),
-           "decode_ms_per_image": float(np.median(dec_runs)),
+           "encode_ms_per_image": enc_med, "decode_ms_per_image": dec_med,
            "encode_ms_runs": enc_runs, "decode_ms_runs": dec_runs,
-           "exact_decode": exact,
+           "exact_decode": ok,
            "launches_compress": enc_counts,
            "launches_decompress": dec_counts,
-           "x_hat_shape": list(x_hat.shape)}
-    print("slice: " + json.dumps(res), flush=True)
-    want = {"wmsa_block": 15, "conv_glu": 17}
-    if not exact:
-        fail("decoded indexes/symbols differ from the encoder's")
-    if enc_counts != want or dec_counts != want:
-        fail(f"launch counts {enc_counts} / {dec_counts}, want {want}")
-    if x_hat.shape != ref.shape or not np.isfinite(x_hat).all():
-        fail("x_hat is not finite or has the wrong shape")
+           "x_hat_shape": list(dec["x_hat"].shape)}
+    print(f"{label}: " + json.dumps(res), flush=True)
+    if not ok:
+        fail(f"{label}: decoded indexes/symbols differ from the encoder's")
+    check_counts(f"{label} compress", enc_counts, want)
+    check_counts(f"{label} decompress", dec_counts, want)
+    res["strings"] = enc["strings"]
+    res["x_hat"] = dec["x_hat"]
     return res
+
+
+def run_certified(codec, imgs: np.ndarray, staged: dict, want: dict
+                  ) -> dict:
+    """self_check, then the certified mode's compress and the shipped-index
+    decode, each counted and timed against the staged part."""
+    B = imgs.shape[0]
+    t0 = time.perf_counter()
+    certified = codec.self_check()
+    check_s = time.perf_counter() - t0
+    mode = codec.encode_mode
+    print(f"certified: self_check() {certified}, mode {mode} "
+          f"({check_s:.2f} s)", flush=True)
+    if not certified or mode == "staged":
+        fail("self_check did not certify a one-fetch encoder mode")
+
+    enc_record: list = []
+    enc, enc_counts, enc_ms = counted(
+        lambda: codec.compress(imgs, record=enc_record))
+    dec_record: list = []
+    dec, dec_counts, _ = counted(
+        lambda: codec.decompress(**_strings(enc), record=dec_record))
+    same_stream = enc["strings"] == staged["strings"]
+    ok = exact(enc_record, dec_record, codec.cfg.num_slices)
+
+    shipped_enc = codec.compress_with_indexes(imgs)
+    per_slice = codec.decompress(**_strings(shipped_enc))["x_hat"]
+    shipped, ship_counts, ship_ms = counted(
+        lambda: codec.decompress(**_strings(shipped_enc),
+                                 indexes=shipped_enc["indexes"])["x_hat"])
+    ship_diff = float((shipped - per_slice).abs().max())
+    enc_med, enc_runs = median_ms(lambda: codec.compress(imgs), enc_ms, B)
+    ship_med, ship_runs = median_ms(
+        lambda: codec.decompress(**_strings(shipped_enc),
+                                 indexes=shipped_enc["indexes"]), ship_ms, B)
+    res = {"mode": mode, "self_check": certified,
+           "stream_equals_staged": same_stream, "exact_decode": ok,
+           "encode_ms_per_image": enc_med, "encode_ms_runs": enc_runs,
+           "shipped_decode_ms_per_image": ship_med,
+           "shipped_decode_ms_runs": ship_runs,
+           "shipped_vs_per_slice_max_abs_diff": ship_diff,
+           "staged_encode_ms_per_image": staged["encode_ms_per_image"],
+           "per_slice_decode_ms_per_image": staged["decode_ms_per_image"],
+           "launches_compress": enc_counts,
+           "launches_decompress": dec_counts,
+           "launches_shipped_decompress": ship_counts}
+    print("certified: " + json.dumps(res), flush=True)
+    if not same_stream:
+        fail(f"certified: {mode} streams differ from the staged streams")
+    if not ok:
+        fail("certified: decoded indexes/symbols differ from the encoder's")
+    if ship_diff != 0.0:
+        fail(f"certified: shipped-index x_hat differs from the per-slice "
+             f"decode by {ship_diff}")
+    check_counts(f"certified {mode} compress", enc_counts, want)
+    check_counts("certified decompress", dec_counts, want)
+    check_counts("shipped-index decompress", ship_counts, want)
+    return res
+
+
+def slice_phase() -> dict:
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+
+    imgs = synthetic_kodak(BATCH)
+    out = {}
+    want = {"wmsa_block": 15, "conv_glu": 17, "wmsa_attention": 0}
+    t0 = time.perf_counter()
+    codec = DCAECodec(DCAEConfig(), dtype=torch.bfloat16, seed=0)
+    codec.update()
+    print(f"slice: codec built + tables baked in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    staged = run_staged(codec, imgs, "slice", want)
+    out["certified"] = run_certified(codec, imgs, staged, want)
+    codec.close()
+    del codec
+
+    # the same weights (seed) with LN1, wmsa_attention and the residual
+    # as separate steps: the rounding differs, so RD is close, not bitwise
+    codec = DCAECodec(DCAEConfig(fused_attention_block=False),
+                      dtype=torch.bfloat16, seed=0)
+    codec.update()
+    attn = run_staged(codec, imgs, "attention-only",
+                      {"wmsa_block": 0, "conv_glu": 17, "wmsa_attention": 15})
+    codec.close()
+    d_bpp = abs(attn["bpp"] - staged["bpp"]) / staged["bpp"]
+    d_psnr = abs(attn["psnr_db"] - staged["psnr_db"])
+    print(f"attention-only vs default: bpp {attn['bpp']:.5f} vs "
+          f"{staged['bpp']:.5f} ({100 * d_bpp:.3f}%, max 1%), PSNR "
+          f"{attn['psnr_db']:.4f} vs {staged['psnr_db']:.4f} dB "
+          f"({d_psnr:.4f} dB, max 0.1)", flush=True)
+    if d_bpp > 0.01 or d_psnr > 0.1:
+        fail("attention-only RD is not within 1% bpp / 0.1 dB of default")
+    for res in (staged, attn):
+        del res["strings"], res["x_hat"]
+    out["staged"] = staged
+    out["attention_only"] = attn
+    return out
 
 
 def _strings(enc: dict) -> dict:
@@ -439,8 +581,11 @@ def _strings(enc: dict) -> dict:
 def profile_phase() -> None:
     """Where one compress + decompress of the slice spends device time:
     torch.profiler over a warm run, kernels summed by name, and the share
-    of the wall time the device was busy."""
+    of the wall time the device was busy. Two pairs on the same codec:
+    the staged encoder with the per-slice decoder, and the one-fetch
+    encoder (compress_with_indexes) with the shipped-index decoder."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from dcae_tpu_torch.config import DCAEConfig
     from dcae_tpu_torch.models.codec import DCAECodec
@@ -448,44 +593,55 @@ def profile_phase() -> None:
     codec = DCAECodec(DCAEConfig(), dtype=torch.bfloat16, seed=0)
     codec.update()
     imgs = synthetic_kodak(BATCH)
-    codec.decompress(**_strings(codec.compress(imgs)))   # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        enc = codec.compress(imgs)
-        torch.cuda.synchronize()
-        t_enc = time.perf_counter() - t0
-        codec.decompress(**_strings(enc))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
+    pairs = {
+        "staged + per-slice": (
+            lambda: codec.compress(imgs, mode="staged"),
+            lambda enc: codec.decompress(**_strings(enc))),
+        "with-indexes + shipped-index": (
+            lambda: codec.compress_with_indexes(imgs),
+            lambda enc: codec.decompress(**_strings(enc),
+                                         indexes=enc["indexes"])),
+    }
     dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                             getattr(e, "self_cuda_time_total", 0))
-    # device-side events only: a CPU op's "self device time" repeats the
-    # time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev(e) > 0]
-    busy_ms = sum(dev(e) for e in events) / 1e3
-    groups: dict = {}
-    for e in events:
-        name = e.key
-        g = ("wmsa_block kernels" if "wmsa_block" in name else
-             "conv_glu kernels" if "conv_glu" in name else
-             "gemm" if "gemm" in name.lower() or "cutlass" in name.lower()
-             else "convolution" if "conv" in name.lower() or "cudnn" in
-             name.lower() else "other")
-        groups[g] = groups.get(g, 0.0) + dev(e) / 1e3
-    print(f"profile: compress+decompress of {BATCH} images: wall "
-          f"{wall * 1e3:.1f} ms (compress {t_enc * 1e3:.1f} ms), device "
-          f"busy {busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}%)",
-          flush=True)
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"profile group {g}: {ms:.2f} ms", flush=True)
-    for e in sorted(events, key=dev, reverse=True)[:15]:
-        print(f"profile kernel {dev(e) / 1e3:9.3f} ms x{e.count:4d}  "
-              f"{e.key[:90]}", flush=True)
+    for label, (encode, decode) in pairs.items():
+        decode(encode())                                 # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            enc = encode()
+            torch.cuda.synchronize()
+            t_enc = time.perf_counter() - t0
+            decode(enc)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device-side events only: a CPU op's "self device time" repeats
+        # the time of the kernels it launched
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and dev(e) > 0]
+        busy_ms = sum(dev(e) for e in events) / 1e3
+        groups: dict = {}
+        for e in events:
+            name = e.key
+            # both wmsa entries share wmsa_{mma,fma}_kernel<kBlock>
+            g = ("wmsa_attention kernels" if "wmsa_" in name
+                 and "<false>" in name
+                 else "wmsa_block kernels" if "wmsa_" in name else
+                 "conv_glu kernels" if "conv_glu" in name else
+                 "gemm" if "gemm" in name.lower() or "cutlass" in
+                 name.lower() else "convolution" if "conv" in name.lower()
+                 or "cudnn" in name.lower() else "other")
+            groups[g] = groups.get(g, 0.0) + dev(e) / 1e3
+        print(f"profile {label}: compress+decompress of {BATCH} images: "
+              f"wall {wall * 1e3:.1f} ms (compress {t_enc * 1e3:.1f} ms), "
+              f"device busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / (wall * 1e3):.1f}%)", flush=True)
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"profile {label} group {g}: {ms:.2f} ms", flush=True)
+        for e in sorted(events, key=dev, reverse=True)[:15]:
+            print(f"profile {label} kernel {dev(e) / 1e3:9.3f} ms "
+                  f"x{e.count:4d}  {e.key[:90]}", flush=True)
     codec.close()
 
 
@@ -531,8 +687,13 @@ def main() -> int:
     if args.phase == "profile":
         profile_phase()
     if results is not None and slice_res is not None:
-        launches = {k: slice_res["launches_compress"][k]
-                    + slice_res["launches_decompress"][k]
+        # each kernel's launches on the path that runs it: wmsa_block and
+        # conv_glu on the default codec, wmsa_attention on the
+        # attention-only one
+        paths = {"wmsa_block": "staged", "conv_glu": "staged",
+                 "wmsa_attention": "attention_only"}
+        launches = {k: slice_res[paths[k]]["launches_compress"][k]
+                    + slice_res[paths[k]]["launches_decompress"][k]
                     for k in results}
         print(json.dumps({"kernels": kernel_summary(results, launches),
                           "slice": slice_res}))

@@ -2,7 +2,9 @@
 
 Same fields and defaults as the JAX package's configuration, minus its
 TPU-only switches: the port launches its hand-written kernels whenever the
-tensors lie on a CUDA device, so there is nothing to turn on.
+tensors lie on a CUDA device, so there is nothing to turn on. One field
+chooses between two kernel paths: `fused_attention_block`, the explicit
+counterpart of the JAX package's DCAE_PALLAS_V4 environment variable.
 """
 
 from __future__ import annotations
@@ -61,6 +63,12 @@ class DCAEConfig:
     # compute dtype of the one-sided transforms g_a/h_a/g_s ("float32" or
     # "bfloat16"); the entropy-side nets always run float32.
     compute_dtype: str = "float32"
+
+    # window-8 Swin blocks: LN1 + window attention + res-scale residual as
+    # one wmsa_block kernel (True, the wmsa_v4 path), or LN1 on its own, the
+    # wmsa_attention kernel and the residual outside it (False, the
+    # wmsa_v3 path). Parameters are the same either way.
+    fused_attention_block: bool = True
 
     @property
     def dict_dim(self) -> int:

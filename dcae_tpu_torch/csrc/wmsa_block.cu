@@ -1,36 +1,46 @@
-// Swin attention half-block on 8x8 windows:
-//     out = rs * x + proj(WMSA(LN(x)))          (W, or shifted SW windows)
+// Swin attention on 8x8 windows (W, or shifted SW windows), two entries
+// over one device code:
+//     dcae_wmsa_block:      out = rs * x + proj(WMSA(LN(x)))   (kBlock)
+//     dcae_wmsa_attention:  out = proj(WMSA(x))               (!kBlock)
 //
-// Replaces the TPU kernel dcae_tpu/ops/pallas/wmsa_v4.py
-// (fused_wmsa_block_v4 -> pl.pallas_call): LN, window extraction, packed
+// Replaces the TPU kernels dcae_tpu/ops/pallas/wmsa_v4.py
+// (fused_wmsa_block_v4 -> pl.pallas_call: LN, window extraction, packed
 // qkv, relative-position bias, shifted-window masks, softmax, proj and the
-// res-scale residual in one pass over x.
+// res-scale residual in one pass over x) and dcae_tpu/ops/pallas/wmsa_v3.py
+// (fused_wmsa_v3 -> pl.pallas_call: the same window attention on an input
+// that is already LayerNormed, with no residual). The two differ only in
+// the first step (LN or a copy) and the last (with or without rs * x), so
+// both kernels are templates on kBlock.
 //
 // What bounds it on the H100: the work is matmul-heavy (qkv and proj are
 // 8*C^2 flops per token, the attention 4*64*C), ~10x more operations than
 // bytes at bf16, so it is operation-bound. bf16 callers (g_a, g_s) run
 // every product on the tensor cores (mma.sync m16n8k16, f32 accumulate:
-// wmsa_block_mma_kernel); f32 callers run them on the CUDA cores in f32
-// FMA (wmsa_block_kernel), bound by the f32 FMA rate.
+// wmsa_mma_kernel); f32 callers run them on the CUDA cores in f32 FMA
+// (wmsa_fma_kernel), bound by the f32 FMA rate.
 //
 // Design:
 //  * One CUDA block per window (64 tokens). Blocks are independent, so no
-//    state carries between them (the TPU grid walked row blocks in order).
+//    state carries between them (the TPU grid walked row blocks in order;
+//    v3's sublane head packing and tile_w windows a step are TPU devices
+//    that do not carry over).
 //  * The shift is done in the addressing: the window reads and writes
 //    token (r, c) of the rolled frame at ((r+4) mod H, (c+4) mod W), so no
 //    rolled copy of x is ever made. The residual commutes with the roll.
 //  * The mask comes from the window's position: a bottom-row window splits
 //    its rows at s = 4, a right-column window its columns (wmsa_v3.py
-//    _mask_bank); the bias is table[h, dy+7, dx+7].
-//  * Shared memory holds the LN'd window and the attention output for all
-//    heads plus one head's q, k, v and scores at a time: in f32 175 KB at
-//    C = 256, in bf16 ~109 KB (two blocks an SM), above the 48 KB default,
-//    so the launch raises the dynamic shared-memory limit.
-//  * bf16 callers get bf16 operands at every product input (LN output,
-//    q/k/v, probabilities, attention output), f32 accumulation, f32 LN and
-//    softmax: the TPU kernel's rounding points. f32 callers keep f32.
-//    head_dim 8 (g_a stage 1, g_s stage 3) is half an mma k-step: the
-//    upper half of the q k^T step is fed zeros.
+//    _mask_bank); the bias is table[h, dy+7, dx+7]. Masked scores are
+//    -inf where v3 adds -1e30: the same softmax, since no row of an 8x8
+//    window shifted by 4 is masked whole.
+//  * Shared memory holds the (LN'd) window and the attention output for
+//    all heads plus one head's q, k, v and scores at a time: in f32 175 KB
+//    at C = 256, in bf16 ~109 KB (two blocks an SM), above the 48 KB
+//    default, so the launch raises the dynamic shared-memory limit.
+//  * bf16 callers get bf16 operands at every product input (LN output or
+//    x, q/k/v, probabilities, attention output), f32 accumulation, f32 LN
+//    and softmax, bf16 output: the TPU kernels' rounding points. f32
+//    callers keep f32. head_dim 8 (g_a stage 1, g_s stage 3) is half an
+//    mma k-step: the upper half of the q k^T step is fed zeros.
 //  * Every sum runs in a fixed order, without atomics: deterministic.
 #include <math.h>
 #include <stdint.h>
@@ -58,18 +68,19 @@ __host__ inline size_t smem_bytes(int C, int hd) {
           (size_t)kP * kSP);
 }
 
+template <bool kBlock>
 __global__ void __launch_bounds__(kThreads)
-wmsa_block_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
-                  const float* __restrict__ ln_b, const float* __restrict__ rs,
-                  const float* __restrict__ wqkv, const float* __restrict__ bqkv,
-                  const float* __restrict__ wproj, const float* __restrict__ bproj,
-                  const float* __restrict__ rel, float* __restrict__ out, int H,
-                  int W, int C, int heads, int shifted) {
+wmsa_fma_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
+                const float* __restrict__ ln_b, const float* __restrict__ rs,
+                const float* __restrict__ wqkv, const float* __restrict__ bqkv,
+                const float* __restrict__ wproj, const float* __restrict__ bproj,
+                const float* __restrict__ rel, float* __restrict__ out, int H,
+                int W, int C, int heads, int shifted) {
   extern __shared__ float smem[];
   const int CS = row_stride(C);
   const int hd = C / heads;
   const int HS = hd + 1;
-  float* xn = smem;                 // (64, CS)  LN(x) of the window
+  float* xn = smem;                 // (64, CS)  LN(x) (or x) of the window
   float* ob = xn + kP * CS;         // (64, CS)  attention output, all heads
   float* qs = ob + kP * CS;         // (64, HS)  one head's q
   float* ks = qs + kP * HS;         // (64, HS)
@@ -95,10 +106,10 @@ wmsa_block_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
     return (((size_t)b * H + r) * W + c) * C;
   };
 
-  // ---- LayerNorm, one warp per token
+  // ---- LayerNorm (or a copy), one warp per token
   for (int t = warp; t < kP; t += kWarps)
     dcae::warp_layernorm_row<float>(x + token_offset(t), ln_w, ln_b, xn + t * CS,
-                                C, true, lane);
+                                C, kBlock, lane);
   __syncthreads();
 
   const float scale = rsqrtf((float)hd);
@@ -175,7 +186,7 @@ wmsa_block_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
     __syncthreads();
   }
 
-  // ---- proj + residual: out = rs * x + (o @ Wp^T + bp)
+  // ---- proj (+ residual): out = [rs * x +] (o @ Wp^T + bp)
   for (int item = tid; item < C * kGroups; item += kThreads) {
     const int n = item % C;
     const int tg = item / C;
@@ -197,11 +208,13 @@ wmsa_block_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
       }
     }
     const float bias = bproj[n];
-    const float scale_n = rs[n];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const size_t off = token_offset(tg + r * kGroups) + n;
-      out[off] = x[off] * scale_n + (acc[r] + bias);
+      if constexpr (kBlock)
+        out[off] = x[off] * rs[n] + (acc[r] + bias);
+      else
+        out[off] = acc[r] + bias;
     }
   }
 }
@@ -221,18 +234,19 @@ __host__ inline size_t mma_smem_bytes(int C, int hd) {
          sizeof(float) * (size_t)kP * kSP;
 }
 
+template <bool kBlock>
 __global__ void __launch_bounds__(kThreads)
-wmsa_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ ln_w,
-                      const __nv_bfloat16* __restrict__ ln_b,
-                      const __nv_bfloat16* __restrict__ rs,
-                      const __nv_bfloat16* __restrict__ wqkv,
-                      const __nv_bfloat16* __restrict__ bqkv,
-                      const __nv_bfloat16* __restrict__ wproj,
-                      const __nv_bfloat16* __restrict__ bproj,
-                      const __nv_bfloat16* __restrict__ rel,
-                      __nv_bfloat16* __restrict__ out, int H, int W, int C,
-                      int heads, int shifted) {
+wmsa_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ ln_w,
+                const __nv_bfloat16* __restrict__ ln_b,
+                const __nv_bfloat16* __restrict__ rs,
+                const __nv_bfloat16* __restrict__ wqkv,
+                const __nv_bfloat16* __restrict__ bqkv,
+                const __nv_bfloat16* __restrict__ wproj,
+                const __nv_bfloat16* __restrict__ bproj,
+                const __nv_bfloat16* __restrict__ rel,
+                __nv_bfloat16* __restrict__ out, int H, int W, int C,
+                int heads, int shifted) {
   using bf16 = __nv_bfloat16;
   extern __shared__ float smem[];
   const int hd = C / heads;
@@ -240,9 +254,6 @@ wmsa_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
   float* S = smem;                               // (64, 65) scores
   bf16* xs = reinterpret_cast<bf16*>(S + kP * kSP);          // (64, C+8)
   bf16* ob = xs + kP * XS;                       // (64, C+8) attention out
-  // LN scratch rows (8 warps x C f32) borrow ob, unused until the first
-  // head's output lands
-  float* scratch = reinterpret_cast<float*>(ob);
   bf16* qs = ob + kP * XS;                       // (64, hd+8) one head
   bf16* ks = qs + kP * HS;
   bf16* vs = ks + kP * HS;
@@ -266,14 +277,21 @@ wmsa_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
     return (((size_t)b * H + r) * W + c) * C;
   };
 
-  // ---- LayerNorm into bf16 rows, one warp per token
+  // ---- LayerNorm into bf16 rows (or a copy of x), one warp per token
   for (int t = warp; t < kP; t += kWarps) {
-    float* tmp = scratch + warp * C;
-    dcae::warp_layernorm_row<bf16>(x + token_offset(t), ln_w, ln_b, tmp, C,
-                                   true, lane);
-    __syncwarp();
-    for (int k = lane; k < C; k += 32) xs[t * XS + k] = __float2bfloat16(tmp[k]);
-    __syncwarp();
+    const bf16* src = x + token_offset(t);
+    if constexpr (kBlock) {
+      // LN scratch rows (8 warps x C f32) borrow ob, unused until the
+      // first head's output lands
+      float* tmp = reinterpret_cast<float*>(ob) + warp * C;
+      dcae::warp_layernorm_row<bf16>(src, ln_w, ln_b, tmp, C, true, lane);
+      __syncwarp();
+      for (int k = lane; k < C; k += 32)
+        xs[t * XS + k] = __float2bfloat16(tmp[k]);
+      __syncwarp();
+    } else {
+      for (int k = lane; k < C; k += 32) xs[t * XS + k] = src[k];
+    }
   }
   __syncthreads();
 
@@ -384,7 +402,7 @@ wmsa_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
   }
 
-  // ---- proj + residual: out = rs * x + (o Wp^T + bp), 16 x 8 tiles
+  // ---- proj (+ residual): out = [rs * x +] (o Wp^T + bp), 16 x 8 tiles
   for (int tile = warp; tile < 4 * (C / 8); tile += kWarps) {
     const int m = tile % 4, nt = tile / 4;
     const bf16* wrow = wproj + (size_t)(nt * 8 + g) * C;
@@ -398,52 +416,54 @@ wmsa_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
     const int n = nt * 8 + 2 * q;
     const float b0 = to_f<bf16>(bproj[n]), b1 = to_f<bf16>(bproj[n + 1]);
-    const float s0 = to_f<bf16>(rs[n]), s1 = to_f<bf16>(rs[n + 1]);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const size_t off = token_offset(m * 16 + g + 8 * hh) + n;
-      const float2 xv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(x + off));
-      *reinterpret_cast<__nv_bfloat162*>(out + off) = __floats2bfloat162_rn(
-          xv.x * s0 + (d[2 * hh] + b0), xv.y * s1 + (d[2 * hh + 1] + b1));
+      float o0 = d[2 * hh] + b0, o1 = d[2 * hh + 1] + b1;
+      if constexpr (kBlock) {
+        const float2 xv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(x + off));
+        o0 += xv.x * to_f<bf16>(rs[n]);
+        o1 += xv.y * to_f<bf16>(rs[n + 1]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(out + off) =
+          __floats2bfloat162_rn(o0, o1);
     }
   }
 }
 
-int launch_mma(const void* x, const void* ln_w, const void* ln_b,
-               const void* rs, const void* wqkv, const void* bqkv,
-               const void* wproj, const void* bproj, const void* rel,
-               void* out, int B, int H, int W, int C, int heads, int shifted,
-               cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  const size_t smem = mma_smem_bytes(C, C / heads);
-  cudaError_t err = cudaFuncSetAttribute(
-      wmsa_block_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int windows = B * (H / kWin) * (W / kWin);
-  wmsa_block_mma_kernel<<<windows, kThreads, smem, stream>>>(
-      (const bf16*)x, (const bf16*)ln_w, (const bf16*)ln_b, (const bf16*)rs,
-      (const bf16*)wqkv, (const bf16*)bqkv, (const bf16*)wproj,
-      (const bf16*)bproj, (const bf16*)rel, (bf16*)out, H, W, C, heads,
-      shifted);
-  return (int)cudaGetLastError();
-}
-
-int launch_fma(const void* x, const void* ln_w, const void* ln_b, const void* rs,
+// Launch one window per block; ln_w, ln_b and rs are read only when
+// kBlock.
+template <bool kBlock>
+int launch(const void* x, const void* ln_w, const void* ln_b, const void* rs,
            const void* wqkv, const void* bqkv, const void* wproj,
            const void* bproj, const void* rel, void* out, int B, int H, int W,
-           int C, int heads, int shifted, cudaStream_t stream) {
-  const size_t smem = smem_bytes(C, C / heads);
-  cudaError_t err = cudaFuncSetAttribute(
-      wmsa_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+           int C, int heads, int shifted, int bf16, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int hd = C / heads;
+  const size_t smem = bf16 ? mma_smem_bytes(C, hd) : smem_bytes(C, hd);
   const int windows = B * (H / kWin) * (W / kWin);
-  wmsa_block_kernel<<<windows, kThreads, smem, stream>>>(
-      (const float*)x, (const float*)ln_w, (const float*)ln_b, (const float*)rs,
-      (const float*)wqkv, (const float*)bqkv, (const float*)wproj, (const float*)bproj,
-      (const float*)rel, (float*)out, H, W, C, heads, shifted);
+  cudaError_t err;
+  if (bf16) {
+    err = cudaFuncSetAttribute(wmsa_mma_kernel<kBlock>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    wmsa_mma_kernel<kBlock><<<windows, kThreads, smem, stream>>>(
+        (const bf*)x, (const bf*)ln_w, (const bf*)ln_b, (const bf*)rs,
+        (const bf*)wqkv, (const bf*)bqkv, (const bf*)wproj, (const bf*)bproj,
+        (const bf*)rel, (bf*)out, H, W, C, heads, shifted);
+  } else {
+    err = cudaFuncSetAttribute(wmsa_fma_kernel<kBlock>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    wmsa_fma_kernel<kBlock><<<windows, kThreads, smem, stream>>>(
+        (const float*)x, (const float*)ln_w, (const float*)ln_b,
+        (const float*)rs, (const float*)wqkv, (const float*)bqkv,
+        (const float*)wproj, (const float*)bproj, (const float*)rel,
+        (float*)out, H, W, C, heads, shifted);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -462,17 +482,25 @@ long long dcae_wmsa_block_smem(int C, int heads, int bf16) {
 // bqkv (3C), wproj (C, C), bproj (C), rel (heads, 15, 15); ln_w, ln_b, rs
 // (C). All of one dtype: f32 (bf16 == 0: CUDA-core kernel, C % 4 == 0) or
 // bf16 (bf16 == 1: tensor-core kernel, C % 16 == 0, head_dim % 8 == 0).
-// Returns the CUDA error of the launch (0 on success).
+// Both entries return the CUDA error of the launch (0 on success).
 int dcae_wmsa_block(const void* x, const void* ln_w, const void* ln_b,
                     const void* rs, const void* wqkv, const void* bqkv,
                     const void* wproj, const void* bproj, const void* rel,
                     void* out, int B, int H, int W, int C, int heads,
                     int shifted, int bf16, void* stream) {
-  if (bf16)
-    return launch_mma(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, out,
-                      B, H, W, C, heads, shifted, (cudaStream_t)stream);
-  return launch_fma(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, out,
-                       B, H, W, C, heads, shifted, (cudaStream_t)stream);
+  return launch<true>(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, out,
+                      B, H, W, C, heads, shifted, bf16, (cudaStream_t)stream);
+}
+
+// The same without LN and residual: out = proj(WMSA(x)) on an x that is
+// already LayerNormed (the widths and dtypes of dcae_wmsa_block).
+int dcae_wmsa_attention(const void* x, const void* wqkv, const void* bqkv,
+                        const void* wproj, const void* bproj, const void* rel,
+                        void* out, int B, int H, int W, int C, int heads,
+                        int shifted, int bf16, void* stream) {
+  return launch<false>(x, nullptr, nullptr, nullptr, wqkv, bqkv, wproj,
+                       bproj, rel, out, B, H, W, C, heads, shifted, bf16,
+                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -2,8 +2,11 @@
 
     forward(x) -> {x_hat, likelihoods{y, z}, para{means, scales, y, ...}}
 
-plus the pieces the real codec drives (encode_analysis, decode_start /
-decode_step / decode_end). Tensors are NHWC, as in the JAX package.
+plus the pieces the real codec drives: encode_analysis, encode_rest /
+encode_arrays (the split and fused encoders), decode_start / decode_step /
+decode_end (the per-slice decoder, which the staged encoder replays),
+decode_all (the shipped-index decoder) and latent_decompress (the latent
+hand-off). Tensors are NHWC, as in the JAX package.
 
 Precision split: `dtype` (bf16 on the card) applies only to the one-sided
 transforms g_a / h_a (encoder) and g_s (decoder); their outputs are cast to
@@ -84,6 +87,10 @@ class DCAE(nn.Module):
 
     # ------------------------------------------------------------ pieces --
 
+    def analysis(self, x: torch.Tensor) -> torch.Tensor:
+        """g_a alone: the latent y in f32."""
+        return self._run(self.g_a, x)
+
     @staticmethod
     def _run(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """A transform in its own parameter dtype; the result in f32."""
@@ -162,14 +169,48 @@ class DCAE(nn.Module):
     # ------------------------------------------------ real-codec pieces --
 
     def encode_analysis(self, x: torch.Tensor):
-        """Encoder front half of the staged compress: (y, z_symbols, z_hat);
-        the rest replays the decoder's own functions."""
-        y = self._run(self.g_a, x)
+        """Encoder front half of every compress mode: (y, z_symbols,
+        z_hat)."""
+        y = self.analysis(x)
         z = self._run(self.h_a, y)
         medians = self.eb_medians().reshape(1, 1, 1, -1)
         z_symbols = torch.round(z - medians).to(torch.int32)
         z_hat = z_symbols.to(torch.float32) + medians
         return y, z_symbols, z_hat
+
+    def encode_rest(self, y: torch.Tensor, z_hat: torch.Tensor,
+                    scale_table) -> dict:
+        """Everything after the analysis transforms in one call: hyper
+        synthesis, every slice context, the symbols round(y_i - mu_i) and
+        the coding indexes. Each context is built by the very functions
+        the decoder runs (_ctx_and_indexes, _apply_symbols), so mu, sigma
+        and the indexes are computed by the same kernels at the same
+        shapes as in decode_start / decode_step.
+
+        Returns {"y_symbols": int32, "y_indexes": uint8}, each
+        (S, B, yh, yw, slice_dim)."""
+        y = y.to(torch.float32)
+        latent_scales, latent_means = self.hyper_synthesis(z_hat)
+        y_hat = latent_scales[..., :0]
+        syms, idxs = [], []
+        for i, y_slice in enumerate(y.split(self.cfg.slice_dim, dim=-1)):
+            support, mu, indexes = self._ctx_and_indexes(
+                i, latent_scales, latent_means, y_hat, scale_table)
+            symbols = torch.round(y_slice - mu).to(torch.int32)
+            syms.append(symbols)
+            idxs.append(indexes.to(torch.uint8))
+            y_hat = torch.cat(
+                [y_hat, self._apply_symbols(i, support, mu, symbols)], dim=-1)
+        return {"y_symbols": torch.stack(syms),
+                "y_indexes": torch.stack(idxs)}
+
+    def encode_arrays(self, x: torch.Tensor, scale_table) -> dict:
+        """The whole device side of an encode in one call: encode_rest's
+        arrays plus "z_symbols" (B, zh, zw, C) int32."""
+        y, z_symbols, z_hat = self.encode_analysis(x)
+        out = self.encode_rest(y, z_hat, scale_table)
+        out["z_symbols"] = z_symbols
+        return out
 
     def _ctx_and_indexes(self, i: int, latent_scales, latent_means,
                          y_hat_prev: torch.Tensor, scale_table):
@@ -213,4 +254,43 @@ class DCAE(nn.Module):
                                           support_last, mu_last,
                                           symbols_last)
         y_hat = torch.cat([y_hat_prev, y_hat_slice], dim=-1)
+        return self.decode_synthesis(y_hat)
+
+    def decode_synthesis(self, y_hat: torch.Tensor) -> torch.Tensor:
+        """g_s, clipped to [0, 1]."""
         return torch.clamp(self._run(self.g_s, y_hat), 0.0, 1.0)
+
+    def decode_all(self, z_hat: torch.Tensor, symbols: torch.Tensor
+                   ) -> torch.Tensor:
+        """The whole decode in one call when every slice's symbols are
+        known (the encoder shipped its coding indexes, so the host decoded
+        all slices first): each slice's context and LRP, then synthesis.
+        symbols: (B, yh, yw, M) int. No index is recomputed, so nothing
+        here has to agree bitwise with the encoder."""
+        latent_scales, latent_means = self.hyper_synthesis(z_hat)
+        y_h, y_w = latent_scales.shape[1], latent_scales.shape[2]
+        y_hat_slices: List[torch.Tensor] = []
+        for i, sym in enumerate(symbols.split(self.cfg.slice_dim, dim=-1)):
+            support, mu, _ = self._slice_context(
+                i, latent_scales, latent_means, y_hat_slices, y_h, y_w)
+            y_hat_slices.append(self._apply_symbols(i, support, mu, sym))
+        return self.decode_synthesis(torch.cat(y_hat_slices, dim=-1))
+
+    def latent_decompress(self, y: torch.Tensor) -> torch.Tensor:
+        """Latent hand-off decode: the payload is the raw latent y; z is
+        derived again here and each slice is quantized against its own
+        context."""
+        y = y.to(torch.float32)
+        z = self._run(self.h_a, y)
+        medians = self.eb_medians().reshape(1, 1, 1, -1)
+        z_hat = torch.round(z - medians) + medians
+        latent_scales, latent_means = self.hyper_synthesis(z_hat)
+        y_h, y_w = y.shape[1], y.shape[2]
+        y_hat_slices: List[torch.Tensor] = []
+        for i, y_slice in enumerate(y.split(self.cfg.slice_dim, dim=-1)):
+            support, mu, _ = self._slice_context(
+                i, latent_scales, latent_means, y_hat_slices, y_h, y_w)
+            y_hat_slice = torch.round(y_slice - mu) + mu
+            y_hat_slices.append(y_hat_slice + self._slice_lrp(
+                i, support, y_hat_slice))
+        return self.decode_synthesis(torch.cat(y_hat_slices, dim=-1))

@@ -20,13 +20,14 @@ class GAnalysis(nn.Sequential):
     def __init__(self, cfg: DCAEConfig):
         f, hd, n, w = cfg.feature_dim, cfg.head_dim, cfg.block_num, \
             cfg.window_size
+        fab = cfg.fused_attention_block
         super().__init__(
             ResidualBottleneckBlockWithStride(cfg.in_channels, f[0]),
-            SwinStack(f[0], hd[0], w, n[0]),
+            SwinStack(f[0], hd[0], w, n[0], fab),
             ResidualBottleneckBlockWithStride(f[0], f[1]),
-            SwinStack(f[1], hd[1], w, n[1]),
+            SwinStack(f[1], hd[1], w, n[1], fab),
             ResidualBottleneckBlockWithStride(f[1], f[2]),
-            SwinStack(f[2], hd[2], w, n[2]),
+            SwinStack(f[2], hd[2], w, n[2], fab),
             Conv(f[2], cfg.M, 5, stride=2),
         )
 
@@ -37,13 +38,14 @@ class GSynthesis(nn.Sequential):
     def __init__(self, cfg: DCAEConfig):
         f, hd, n, w = cfg.feature_dim, cfg.head_dim, cfg.block_num, \
             cfg.window_size
+        fab = cfg.fused_attention_block
         super().__init__(
             Deconv(cfg.M, f[2], 5, 2),
-            SwinStack(f[2], hd[3], w, n[2]),
+            SwinStack(f[2], hd[3], w, n[2], fab),
             ResidualBottleneckBlockWithUpsample(f[2], f[1]),
-            SwinStack(f[1], hd[4], w, n[1]),
+            SwinStack(f[1], hd[4], w, n[1], fab),
             ResidualBottleneckBlockWithUpsample(f[1], f[0]),
-            SwinStack(f[0], hd[5], w, n[0]),
+            SwinStack(f[0], hd[5], w, n[0], fab),
             ResidualBottleneckBlockWithUpsample(f[0], cfg.out_channels),
         )
 

@@ -1,13 +1,15 @@
 """NN blocks on NHWC tensors: residual bottlenecks, window attention, gated
 MLPs and the Swin stacks of the transforms.
 
-Module and parameter names follow the reference's state dict. The two
-fused TPU kernels have hand-written CUDA counterparts: the attention
-half-block of every window-8 Swin block goes through `wmsa_block`, and the
-GLU of blocks whose widths are multiples of 128 (stage 3) through
-`conv_glu`. Both run their plain PyTorch statement on CPU tensors. The
-window-4 hyper stacks and the stage-1/2 GLUs use the plain modules, as the
-JAX package's do.
+Module and parameter names follow the reference's state dict. The fused
+TPU kernels have hand-written CUDA counterparts: the attention half-block
+of every window-8 Swin block goes through `wmsa_block` (LN1, attention and
+residual in one kernel) or, in the attention-only configuration
+(`fused_attention_block=False`), LN1 runs on its own and the window
+attention goes through `wmsa_attention`; the GLU of blocks whose widths
+are multiples of 128 (stage 3) goes through `conv_glu`. Each runs its
+plain PyTorch statement on CPU tensors. The window-4 hyper stacks and the
+stage-1/2 GLUs use the plain modules, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu, supported
+from dcae_tpu_torch.ops.kernels.wmsa_attention import wmsa_attention
 from dcae_tpu_torch.ops.kernels.wmsa_block import (WINDOW,
                                                    relative_position_bias,
                                                    shifted_window_mask,
@@ -72,8 +75,9 @@ class ResidualBottleneckBlockWithUpsample(nn.Module):
 
 class WMSA(nn.Module):
     """Swin window multi-head self-attention ('W' or shifted 'SW') on a
-    post-LN input, plain PyTorch. x: (B, H, W, C) with H, W divisible by
-    the window."""
+    post-LN input. x: (B, H, W, C) with H, W divisible by the window.
+    Window-8 calls go through `wmsa_attention`, others run plain
+    PyTorch."""
 
     def __init__(self, dim: int, head_dim: int, window_size: int,
                  shifted: bool = False):
@@ -89,6 +93,12 @@ class WMSA(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, heads, hd = self.window_size, self.heads, self.head_dim
+        if w == WINDOW:
+            return wmsa_attention(
+                x, self.embedding_layer.weight, self.embedding_layer.bias,
+                self.linear.weight, self.linear.bias,
+                self.relative_position_params, heads=heads,
+                shifted=self.shifted)
         B, H, W, C = x.shape
         if self.shifted:
             x = torch.roll(x, shifts=(-(w // 2), -(w // 2)), dims=(1, 2))
@@ -164,13 +174,18 @@ class Scale(nn.Module):
 
 class ResScaleConvolutionGateBlock(nn.Module):
     """Transformer block: x = rs1 * x + WMSA(LN x); x = rs2 * x + GLU(LN x).
+
+    fused_attention_block: window-8 blocks run the first half as one
+    `wmsa_block` kernel (True) or as LN1, `wmsa_attention` and the residual
+    (False: the JAX package's DCAE_PALLAS_V4=0 path).
     """
 
     def __init__(self, dim: int, head_dim: int, window_size: int,
-                 shifted: bool = False):
+                 shifted: bool = False, fused_attention_block: bool = True):
         super().__init__()
         self.window_size = window_size
         self.shifted = shifted
+        self.fused_attention_block = fused_attention_block
         self.ln1 = LayerNorm(dim)
         self.msa = WMSA(dim, head_dim, window_size, shifted)
         self.res_scale_1 = Scale(dim)
@@ -179,7 +194,7 @@ class ResScaleConvolutionGateBlock(nn.Module):
         self.res_scale_2 = Scale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.window_size == WINDOW:
+        if self.window_size == WINDOW and self.fused_attention_block:
             m = self.msa
             x = wmsa_block(
                 x, self.ln1.weight, self.ln1.bias, self.res_scale_1.scale,
@@ -204,12 +219,14 @@ class SwinStack(nn.Module):
     """
 
     def __init__(self, dim: int, head_dim: int, window_size: int,
-                 block_num: int):
+                 block_num: int, fused_attention_block: bool = True):
         super().__init__()
         self.window_size = window_size
         self.layers = nn.ModuleList(
             ResScaleConvolutionGateBlock(dim, head_dim, window_size,
-                                         shifted=(i % 2 == 1))
+                                         shifted=(i % 2 == 1),
+                                         fused_attention_block=(
+                                             fused_attention_block))
             for i in range(block_num))
         self.conv = Conv(dim, dim, 3)
 

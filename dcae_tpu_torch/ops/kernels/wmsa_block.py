@@ -23,8 +23,12 @@ from dcae_tpu_torch.ops.kernels import _build
 WINDOW = 8
 
 
-def _bf16_round(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).to(torch.float32)
+def operand_rounding(dtype: torch.dtype):
+    """Rounding to the products' operand precision: bf16 callers feed bf16
+    operands (f32 accumulation), f32 callers keep f32."""
+    if dtype == torch.bfloat16:
+        return lambda t: t.to(torch.bfloat16).to(torch.float32)
+    return lambda t: t
 
 
 def relative_position_bias(rel: torch.Tensor, window: int = WINDOW
@@ -52,22 +56,18 @@ def shifted_window_mask(nh: int, nw: int, window: int = WINDOW
     return mask.reshape(nh * nw, window * window, window * window)
 
 
-def wmsa_block_ref(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, *,
-                   heads: int, shifted: bool) -> torch.Tensor:
-    """Plain PyTorch statement of the kernel. LN and softmax in f32; bf16
-    inputs get bf16 operands at each product input (the kernel's rounding
-    points), f32 inputs stay f32. Returns x's dtype."""
+def window_attention(xs, wqkv, bqkv, wproj, bproj, rel, *, heads: int,
+                      shifted: bool, rnd) -> torch.Tensor:
+    """proj(WMSA(xs)) of an f32 input in the rolled frame whose values are
+    already the qkv product's operands; f32, in the rolled frame, before
+    the output's rounding. `rnd` rounds q/k/v, the probabilities and the
+    attention output to the operand precision."""
     w = WINDOW
-    B, H, W, C = x.shape
+    B, H, W, C = xs.shape
     hd = C // heads
-    rnd = _bf16_round if x.dtype == torch.bfloat16 else (lambda t: t)
     f = lambda t: t.to(torch.float32)  # noqa: E731
-    xs = f(x)
-    if shifted:
-        xs = torch.roll(xs, shifts=(-(w // 2), -(w // 2)), dims=(1, 2))
-    xn = rnd(F.layer_norm(xs, (C,), f(ln_w), f(ln_b), 1e-5))
     nh, nw = H // w, W // w
-    xw = xn.reshape(B, nh, w, nw, w, C).permute(0, 1, 3, 2, 4, 5)
+    xw = xs.reshape(B, nh, w, nw, w, C).permute(0, 1, 3, 2, 4, 5)
     xw = xw.reshape(B, nh * nw, w * w, C)
     qkv = rnd(torch.matmul(xw, f(wqkv).t()) + f(bqkv))
     q, k, v = (t.reshape(B, nh * nw, w * w, heads, hd).permute(0, 3, 1, 2, 4)
@@ -75,24 +75,87 @@ def wmsa_block_ref(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, *,
     sim = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
     sim = sim + relative_position_bias(f(rel))[None, :, None]
     if shifted:
-        mask = torch.as_tensor(shifted_window_mask(nh, nw), device=x.device)
+        mask = torch.as_tensor(shifted_window_mask(nh, nw), device=xs.device)
         sim = sim.masked_fill(mask[None, None], float("-inf"))
     probs = rnd(torch.softmax(sim, dim=-1))
     o = rnd(torch.matmul(probs, v).permute(0, 2, 3, 1, 4).reshape(
         B, nh * nw, w * w, C))
     res = torch.matmul(o, f(wproj).t()) + f(bproj)
     res = res.reshape(B, nh, nw, w, w, C).permute(0, 1, 3, 2, 4, 5)
-    out = xs * f(rs) + res.reshape(B, H, W, C)
-    if shifted:
-        out = torch.roll(out, shifts=(w // 2, w // 2), dims=(1, 2))
-    return out.to(x.dtype)
+    return res.reshape(B, H, W, C)
+
+
+def roll_window(x: torch.Tensor, shifted: bool, sign: int) -> torch.Tensor:
+    """The SW windows' cyclic shift: -w/2 before the windowing (sign -1),
+    +w/2 after it (sign +1); identity for W windows."""
+    if not shifted:
+        return x
+    s = sign * (WINDOW // 2)
+    return torch.roll(x, shifts=(s, s), dims=(1, 2))
+
+
+def wmsa_block_ref(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, *,
+                   heads: int, shifted: bool) -> torch.Tensor:
+    """Plain PyTorch statement of the kernel. LN and softmax in f32; bf16
+    inputs get bf16 operands at each product input (the kernel's rounding
+    points), f32 inputs stay f32. Returns x's dtype."""
+    C = x.shape[-1]
+    rnd = operand_rounding(x.dtype)
+    f = lambda t: t.to(torch.float32)  # noqa: E731
+    xs = roll_window(f(x), shifted, -1)
+    xn = rnd(F.layer_norm(xs, (C,), f(ln_w), f(ln_b), 1e-5))
+    res = window_attention(xn, wqkv, bqkv, wproj, bproj, rel, heads=heads,
+                            shifted=shifted, rnd=rnd)
+    return roll_window(xs * f(rs) + res, shifted, 1).to(x.dtype)
 
 
 @functools.cache
-def _entry():
+def _entries():
     lib = _build.load_kernel("wmsa_block")
-    return (_build.bind(lib, "dcae_wmsa_block", 10, 7),
-            _build.bind_query(lib, "dcae_wmsa_block_smem", 3))
+    return {"wmsa_block": _build.bind(lib, "dcae_wmsa_block", 10, 7),
+            "wmsa_attention": _build.bind(lib, "dcae_wmsa_attention", 7, 7),
+            "smem": _build.bind_query(lib, "dcae_wmsa_block_smem", 3)}
+
+
+def check_windows(what: str, x, heads: int) -> None:
+    """x: (B, H, W, C) with H, W multiples of the window, C of heads."""
+    _, H, W, C = x.shape
+    if H % WINDOW or W % WINDOW or C % heads:
+        raise ValueError(f"{what}: shape {tuple(x.shape)} with {heads} "
+                         f"heads needs H, W multiples of {WINDOW}")
+
+
+def launch(what: str, x, params, *, heads: int, shifted: bool
+           ) -> torch.Tensor:
+    """Launch entry `dcae_{what}` of csrc/wmsa_block.cu on CUDA tensors;
+    params in the entry's order, ending in (wqkv, bqkv, wproj, bproj, rel).
+    Raises on any other device and on what the kernel does not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {x.device}")
+    x = x.contiguous()
+    _build.kernel_operands(what, x, params)
+    B, H, W, C = x.shape
+    wqkv, rel = params[-5], params[-1]
+    bf16 = x.dtype == torch.bfloat16
+    # f32: CUDA-core kernel, float4 rows; bf16: tensor-core kernel, 16-deep
+    # products over C and 8-wide head tiles
+    widths_ok = (C % 16 == 0 and (C // heads) % 8 == 0) if bf16 else \
+        C % 4 == 0
+    if not widths_ok or tuple(wqkv.shape) != (3 * C, C) or \
+            tuple(rel.shape) != (heads, 2 * WINDOW - 1, 2 * WINDOW - 1):
+        raise ValueError(f"{what}: unsupported widths or weight shapes")
+    entries = _entries()
+    if entries["smem"](C, heads, int(bf16)) > _build.SMEM_LIMIT:
+        raise ValueError(f"{what}: C={C} needs more shared memory than a "
+                         "block has")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = entries[what](x.data_ptr(), *(p.data_ptr() for p in params),
+                           out.data_ptr(), B, H, W, C, heads, int(shifted),
+                           int(bf16), stream)
+    _build.check(rc, what)
+    return out
 
 
 def wmsa_block(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, *,
@@ -101,35 +164,10 @@ def wmsa_block(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, *,
     `shifted`). x: (B, H, W, C) with H, W multiples of 8. CPU tensors run
     wmsa_block_ref; CUDA tensors launch the kernel or raise."""
     params = (ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel)
-    B, H, W, C = x.shape
-    if H % WINDOW or W % WINDOW or C % heads:
-        raise ValueError(f"wmsa_block: shape {tuple(x.shape)} with {heads} "
-                         f"heads needs H, W multiples of {WINDOW}")
+    check_windows("wmsa_block", x, heads)
     if x.device.type == "cpu":
         return wmsa_block_ref(x, *params, heads=heads, shifted=shifted)
-    if x.device.type != "cuda":
-        raise ValueError(f"wmsa_block: no kernel for {x.device}")
-    x = x.contiguous()
-    _build.kernel_operands("wmsa_block", x, params)
-    bf16 = x.dtype == torch.bfloat16
-    # f32: CUDA-core kernel, float4 rows; bf16: tensor-core kernel, 16-deep
-    # products over C and 8-wide head tiles
-    widths_ok = (C % 16 == 0 and (C // heads) % 8 == 0) if bf16 else \
-        C % 4 == 0
-    if not widths_ok or tuple(wqkv.shape) != (3 * C, C) or \
-            tuple(rel.shape) != (heads, 2 * WINDOW - 1, 2 * WINDOW - 1):
-        raise ValueError("wmsa_block: unsupported widths or weight shapes")
-    fn, smem = _entry()
-    if smem(C, heads, int(bf16)) > _build.SMEM_LIMIT:
-        raise ValueError(f"wmsa_block: C={C} needs more shared memory than "
-                         "a block has")
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), *(p.data_ptr() for p in params),
-                out.data_ptr(), B, H, W, C, heads, int(shifted), int(bf16),
-                stream)
-    _build.check(rc, "wmsa_block")
+    out = launch("wmsa_block", x, params, heads=heads, shifted=shifted)
     wmsa_block.launches += 1
     return out
 

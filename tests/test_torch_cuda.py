@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from dcae_tpu_torch.ops.kernels import conv_glu as cg
+from dcae_tpu_torch.ops.kernels import wmsa_attention as wa
 from dcae_tpu_torch.ops.kernels import wmsa_block as wm
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -65,6 +66,34 @@ def test_wmsa_block_kernel(card, C, heads, dtype, shifted):
     want = wm.wmsa_block_ref(x, *args, heads=heads, shifted=shifted)
     assert wm.wmsa_block.launches == before + 1
     assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,heads", [(128, 4), (96, 12)])
+def test_wmsa_attention_kernel(card, C, heads, dtype, shifted):
+    """C=96 with 12 heads is head_dim 8: half an mma k-step in bf16."""
+    rng = np.random.default_rng(16)
+    dt = getattr(torch, dtype)
+    b = C ** -0.5
+    x = torch.from_numpy(rng.normal(size=(2, 16, 24, C)).astype(
+        np.float32)).cuda().to(dt)
+    args = _args(rng, dt, [
+        ((3 * C, C), lambda r, s: _uniform(r, s, b)),
+        ((3 * C,), lambda r, s: _uniform(r, s, b)),
+        ((C, C), lambda r, s: _uniform(r, s, b)),
+        ((C,), lambda r, s: _uniform(r, s, b)),
+        ((heads, 15, 15), lambda r, s: 0.02 * r.normal(size=s)),
+    ])
+    before = wa.wmsa_attention.launches
+    got = wa.wmsa_attention(x, *args, heads=heads, shifted=shifted)
+    want = wa.wmsa_attention_ref(x, *args, heads=heads, shifted=shifted)
+    assert wa.wmsa_attention.launches == before + 1
+    assert got.dtype == x.dtype
+    assert _rel_err(got, want) <= TOL[dtype]
+    assert torch.equal(got, wa.wmsa_attention(x, *args, heads=heads,
+                                              shifted=shifted))
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The port's two kernels (dcae_tpu_torch.ops.kernels) against the JAX
-package's Pallas kernels, in interpret mode on the CPU.
+"""The port's kernels (dcae_tpu_torch.ops.kernels) against the JAX
+package's Pallas kernels, in interpret mode on the CPU (wmsa_attention's
+parity tests are in tests/test_torch_wmsa_attention.py).
 
 On the CPU a kernel wrapper runs its plain PyTorch statement, so these
 tests hold that statement to the TPU kernel's math; the CUDA kernels are
@@ -20,6 +21,7 @@ import torch
 from dcae_tpu.ops.pallas.conv_glu import fused_conv_glu
 from dcae_tpu.ops.pallas.wmsa_v4 import _block_einsum_f32, fused_wmsa_block_v4
 from dcae_tpu_torch.ops.kernels import conv_glu as cg
+from dcae_tpu_torch.ops.kernels import wmsa_attention as wa
 from dcae_tpu_torch.ops.kernels import wmsa_block as wm
 
 ATOL = 3e-5
@@ -124,7 +126,8 @@ def test_conv_glu_ref_matches_pallas(apply_ln):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-@pytest.mark.parametrize("kernel", ["wmsa_block", "conv_glu"])
+@pytest.mark.parametrize("kernel", ["wmsa_block", "wmsa_attention",
+                                    "conv_glu"])
 def test_wrapper_takes_plain_version_on_cpu(kernel):
     """A CPU tensor runs the plain statement (bitwise) and launches
     nothing; a tensor elsewhere than CPU or CUDA raises."""
@@ -134,6 +137,11 @@ def test_wrapper_takes_plain_version_on_cpu(kernel):
         args = _wmsa_torch_args(_wmsa_params(rng, 32, 4))
         fn, ref, kw = wm.wmsa_block, wm.wmsa_block_ref, dict(heads=4,
                                                            shifted=True)
+    elif kernel == "wmsa_attention":
+        # the block's weights without ln_w, ln_b, rs
+        args = _wmsa_torch_args(_wmsa_params(rng, 32, 4))[3:]
+        fn, ref, kw = wa.wmsa_attention, wa.wmsa_attention_ref, dict(
+            heads=4, shifted=True)
     else:
         args = _glu_torch_args(_glu_params(rng, 32, 64))
         fn, ref, kw = cg.conv_glu, cg.conv_glu_ref, dict(apply_ln=True)
