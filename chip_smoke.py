@@ -50,6 +50,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 non-tensor
+TF32_FLOPS = 495e12          # dense TF32 tensor-core rate: the 3xTF32 ceiling
 # max|kernel - plain| / max|plain|: ~1.7x / ~6x the largest errors
 # measured on an H100 (6.0e-3 in bf16, wmsa_attention stage 2; 1.7e-6 in
 # f32, the DCA conv_glu; PERF.md), well inside the first bars of 3e-2 / 1e-4
@@ -108,6 +109,13 @@ def bound(nbytes: float, flops: float, dtype: str):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def rates(row: dict, flops: float) -> None:
+    """Add the achieved TFLOP/s and the share of the bound (bound / time)
+    to a kernel row."""
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    row["bound_share"] = row["bound_ms"] / row["ms"]
 
 
 def rel_err(got, want) -> float:
@@ -221,10 +229,13 @@ def kernel_phase(gen) -> dict:
                                            iters=3, warmup=1),
                        "library_ms": time_ms(lib),
                        "bound_ms": b_ms, "bound_by": b_by}
+                rates(row, flops)
                 print(f"{name} {row['case']}: rel err {err:.3e} (tol "
-                      f"{TOL[dtype]:.0e}) ms {row['ms']:.3f} plain "
-                      f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} "
-                      f"bound {b_ms:.4f} ({b_by})", flush=True)
+                      f"{TOL[dtype]:.0e}) ms {row['ms']:.4f} plain "
+                      f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.4f} "
+                      f"bound {b_ms:.4f} ({b_by}) {row['tflops']:.1f} "
+                      f"TFLOP/s, {100 * row['bound_share']:.1f}% of bound",
+                      flush=True)
                 results[name].append(row)
                 del x, p, got, want, lib
     for label, H, W, C, hidden, dtype, per_run in CONV_GLU_CASES:
@@ -250,10 +261,18 @@ def kernel_phase(gen) -> dict:
                "plain_ms": time_ms(lambda: conv_glu_ref(x, *p), iters=3,
                                    warmup=1),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        rates(row, flops)
+        extra = ""
+        if dtype == "float32":
+            # the f32 products run as 3xTF32: three tensor-core products
+            row["tf32x3_ceiling_ms"] = 3 * tokens * 6 * C * hidden / \
+                TF32_FLOPS * 1e3
+            extra = f", 3xTF32 ceiling {row['tf32x3_ceiling_ms']:.4f} ms"
         print(f"conv_glu {row['case']}: rel err {err:.3e} (tol "
               f"{TOL[dtype]:.0e}) bitwise repeat {repeat} ms "
-              f"{row['ms']:.3f} plain {row['plain_ms']:.3f} bound "
-              f"{b_ms:.4f} ({b_by})", flush=True)
+              f"{row['ms']:.4f} plain {row['plain_ms']:.3f} bound "
+              f"{b_ms:.4f} ({b_by}){extra} {row['tflops']:.1f} TFLOP/s, "
+              f"{100 * row['bound_share']:.1f}% of bound", flush=True)
         results["conv_glu"].append(row)
         del x, p, got, want, again
     bad = [r["case"] for rows in results.values() for r in rows
@@ -294,7 +313,8 @@ def kernel_summary(results: dict, launches: dict) -> list:
             "library_ms": lib,
             "shapes": [{k: r[k] for k in ("case", "ms", "plain_ms",
                                           "library_ms", "bound_ms",
-                                          "bound_by", "rel_err", "per_run")}
+                                          "bound_by", "rel_err", "per_run",
+                                          "tflops", "bound_share")}
                        for r in rows],
         })
     return out
@@ -624,14 +644,19 @@ def profile_phase() -> None:
         groups: dict = {}
         for e in events:
             name = e.key
-            # both wmsa entries share wmsa_{mma,fma}_kernel<kBlock>
+            # both wmsa entries share wmsa_{mma,pack,fma}_kernel<kBlock>;
+            # every conv_glu phase (ln, gemm, gate; the bf16 tile kernel)
+            # carries conv_glu in its name and is tested before "gemm";
+            # cuDNN's implicit-GEMM convolutions (fprop, dgrad) are
+            # convolutions, not matrix products
+            low = name.lower()
             g = ("wmsa_attention kernels" if "wmsa_" in name
                  and "<false>" in name
                  else "wmsa_block kernels" if "wmsa_" in name else
                  "conv_glu kernels" if "conv_glu" in name else
-                 "gemm" if "gemm" in name.lower() or "cutlass" in
-                 name.lower() else "convolution" if "conv" in name.lower()
-                 or "cudnn" in name.lower() else "other")
+                 "convolution" if any(k in low for k in (
+                     "conv", "cudnn", "fprop", "dgrad", "wgrad")) else
+                 "gemm" if "gemm" in low or "cutlass" in low else "other")
             groups[g] = groups.get(g, 0.0) + dev(e) / 1e3
         print(f"profile {label}: compress+decompress of {BATCH} images: "
               f"wall {wall * 1e3:.1f} ms (compress {t_enc * 1e3:.1f} ms), "

@@ -1,7 +1,8 @@
 // Helpers shared by the port's CUDA kernels: f32 <-> storage-type
 // conversion, the bf16 operand rounding the TPU kernels apply at their
-// matmul inputs, warp reductions and LayerNorm, 4-wide f32 loads, and the
-// bf16 tensor-core (mma.sync) fragment helpers.
+// matmul inputs, warp reductions and LayerNorm, 4-wide f32 loads, the
+// bf16 tensor-core fragment helpers (mma.sync), cp.async copies, and the
+// Hopper warpgroup product (wgmma) with its operand layout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,6 +62,28 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Four 8 x 16-byte matrices from shared memory (ldmatrix.x4): lanes 8 i ..
+// 8 i + 7 give the row addresses of matrix i, and r[i] holds, in lane l,
+// the 4 bytes at column l % 4 of row l / 4: the (g, q) element of an mma
+// fragment, for bf16 pairs and tf32 alike.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// The B fragment of m16n8k16 from a row-major (k, n) bf16 tile: lanes 0-7
+// give the addresses of rows k..k+7 at column n, lanes 8-15 those of rows
+// k+8..k+15 (ldmatrix.x2.trans).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t b[2],
+                                                  const __nv_bfloat16* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(row))));
+}
+
 // A fragment of rows (row_lo, row_hi) = (g, g+8) of a row-major bf16 tile
 // at column k.
 __device__ __forceinline__ void load_a(uint32_t a[4],
@@ -80,6 +103,119 @@ __device__ __forceinline__ void load_b(uint32_t b[2],
                                        int q) {
   b[0] = ld_pair(wrow + k + 2 * q);
   b[1] = ld_pair(wrow + k + 2 * q + 8);
+}
+
+// ---- asynchronous global -> shared copies (cp.async, 16 bytes a thread)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---- Hopper bulk copies (the TMA engine, no tensor map) completing on an
+// mbarrier in shared memory
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(bar))),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive on `bar` and expect `bytes` more of copies to land in its phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          static_cast<uint32_t>(__cvta_generic_to_shared(bar))),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(
+          static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+      "l"(gmem), "r"(bytes),
+      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
+// ---- Hopper warpgroup products (wgmma, sm_90a) on bf16 operands in shared
+// memory, without swizzle. Both operands are K-major and stored as 8 x 8
+// core matrices of 128 contiguous bytes (8 rows of 16 bytes): element
+// (r, k) of a rows x K operand sits at blocked(r, k, K). A k16 step reads
+// two core matrices along K (LBO = 128 bytes apart) for every 8 rows (SBO
+// = 16 K bytes apart).
+__device__ __forceinline__ int blocked(int r, int k, int K) {
+  return ((r >> 3) * (K >> 3) + (k >> 3)) * 64 + (r & 7) * 8 + (k & 7);
+}
+
+// Descriptor of a blocked operand starting at `p` (16-byte aligned), K wide.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int K) {
+  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  const uint64_t lbo = 128, sbo = 16 * (uint64_t)K;
+  return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32);
+}
+
+// Writes of the generic proxy (stores, cp.async) to shared memory become
+// visible to the async proxy that wgmma reads through; before the barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// D(64 x 32, f32) += A(64 x 16) B(32 x 16)^T by one warpgroup. Warp w of the
+// group holds rows 16 w.. of D: d[4 j + e] as an m16n8 tile j (columns
+// 8 j..) in the mma.sync D layout.
+__device__ __forceinline__ void wgmma_m64n32k16(float d[16], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

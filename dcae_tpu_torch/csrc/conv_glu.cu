@@ -3,38 +3,51 @@
 //     out     = (GELU(dwconv3x3(g) + dwb) * v) @ W2^T + b2
 //
 // Replaces the TPU kernel dcae_tpu/ops/pallas/conv_glu.py
-// (fused_conv_glu -> pl.pallas_call): the 2h-wide fc1 output, the depthwise
-// conv and the gate never reach device memory; x is read and the output
-// written once.
+// (fused_conv_glu -> pl.pallas_call), which keeps a whole row band and
+// the 2h-wide fc1 output in VMEM and writes only the output.
 //
 // What bounds it on the H100: 6*C*h flops per token (fc1 + fc2) against
-// 2-4*C bytes, so like the TPU kernel it is operation-bound. bf16 callers
-// (the stage-3 GLUs) run the products on the tensor cores (mma.sync
-// m16n8k16, f32 accumulate: conv_glu_mma_kernel); f32 callers (the
-// entropy-side DCA GLU, which must stay f32) run them on the CUDA cores in
-// f32 FMA (conv_glu_f32_kernel), bound by the f32 FMA rate.
+// 2-4*C bytes, so it is operation-bound. Two designs, by dtype:
 //
-// Design:
-//  * The TPU kernel keeps a whole row band (all W columns, all h hidden
-//    channels) in 16 MB of VMEM; a block here has 227 KB. So a block owns a
-//    2D output tile (TH x 8 tokens) with a one-pixel halo and walks the
-//    hidden channels in chunks: for each chunk it computes the gate half
-//    of fc1 on the haloed tile (recomputing the halo, which the neighbours
-//    also compute), the value half on the tile, the 3x3 depthwise conv,
-//    GELU * v, and adds the chunk's fc2 partial into an f32 accumulator of
-//    the tile. The LN'd haloed tile stays in shared memory for all chunks.
-//    f32: TH 2, chunks of 64, weights staged through shared memory;
-//    bf16: TH 4, chunks of 64; both keep the accumulator in registers.
-//  * Zero padding of the conv lives in g-space: a halo pixel outside the
-//    image contributes g = 0, not fc1(LN(0)) + b1.
-//  * GELU is exact (erff, within 2 ulp of erf); the TPU kernel used an
-//    Abramowitz-Stegun erf with 1.5e-7 error.
-//  * bf16 callers get bf16 operands at the two products' inputs (LN
-//    output, gated hidden), f32 accumulation, f32 LN/conv/GELU; f32 callers
-//    (the entropy-side DCA GLU) keep f32 throughout.
-//  * The chunks run in a fixed order and nothing uses atomics, so the f32
-//    result is bitwise repeatable from launch to launch: the entropy side
-//    needs that for encoder/decoder agreement.
+// f32 callers (the entropy-side DCA GLU, C=640, h=1280, which must stay
+// f32 and bitwise repeatable): on the CUDA cores the bound is the f32 rate,
+// 67 TFLOP/s. The TPU kernel's shape, a haloed tile walk cut to 227 KB of
+// shared memory, would recompute the gate half of fc1 on every halo (1.5x
+// the flops), fill 1.45 waves at one block an SM and stream all of W1 and
+// W2 through every block. So the f32 path is four phases, each shaped for
+// the card, with g and v in a scratch of 2 x tokens x h f32 that stays
+// mostly in the 50 MB L2:
+//   conv_glu_ln_kernel     LN(x) into scratch (skipped without LN);
+//   conv_glu_gemm_kernel   fc1 as a GEMM on 128 x 128 tiles: g | v + b1;
+//   conv_glu_gate_kernel   v <- GELU(dwconv3x3(g) + dwb) * v, in place;
+//   conv_glu_gemm_kernel   fc2 as a GEMM on 64 x 64 tiles (enough tiles
+//                          for ~2 waves at C=640): out = y W2^T + b2.
+// The products run on the tensor cores in 3xTF32 (mma.sync m16n8k8): each
+// operand is split as a = hi + lo, and hi*hi + hi*lo + lo*hi accumulate in
+// f32: f32-class accuracy from three products at the TF32 rate (495
+// TFLOP/s) instead of one at the f32 FMA rate (67 TFLOP/s), a ceiling 2.5x
+// lower. Fragments come by ldmatrix from a 3-stage cp.async ring
+// of operand K-slices, each slice read once per tile. The split uses no
+// conversion instruction (see split_tf32), and each k-step's three
+// products sum in a fresh partial that is added to the accumulator in f32
+// (the tensor cores' own accumulation truncates). The gate is computed
+// once per element, not per output tile: fused into fc2's operand load it
+// would be recomputed for every one of the C/64 column tiles.
+//
+// bf16 callers (the stage-3 GLUs): conv_glu_mma_kernel, a haloed tile
+// walk on mma.sync m16n8k16. A block owns 4 x 8 output tokens with a
+// one-pixel halo, walks the hidden width in chunks of 64 (gate on the
+// haloed tile, value on the tile, 3x3 conv, GELU * v, fc2 partial into a
+// register accumulator), and keeps the LN'd haloed tile in shared memory.
+//
+// Both: zero padding of the conv lives in g-space (an out-of-image
+// neighbour contributes g = 0, not fc1(LN(0)) + b1); GELU is exact (erff,
+// within 2 ulp; the TPU kernel used an Abramowitz-Stegun erf with 1.5e-7
+// error); bf16 callers get bf16 operands at the two products' inputs and
+// f32 accumulation, LN, conv and GELU; f32 callers stay f32. Every sum runs
+// in a fixed order without atomics, so the result is bitwise repeatable
+// from launch to launch: the entropy side needs that for encoder/decoder
+// agreement.
 #include <math.h>
 #include <stdint.h>
 
@@ -46,218 +59,215 @@ using dcae::to_f;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTW = 8;            // tile width (tokens)
+constexpr int kTW = 8;            // bf16 tile width (tokens)
 
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ float fma4(const float4 a, const float4 b,
-                                      float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 // ---------------------------------------------------------------------------
-// f32 callers (the entropy-side DCA GLU): CUDA-core FMA, register-tiled.
-// The tile is 2 x 8 tokens (40 haloed, 16 central); hidden channels go 64
-// at a time. Thread (rg = tid / 16, cq = tid % 16) computes the gate of
-// haloed rows rg, rg+16, rg+32 and the value of central row rg, for the
-// channels cq + 16 i (i < 4), from weights staged through shared memory
-// in coalesced 128 x 32 slices. fc2 streams W2 in 64-column blocks; the
-// thread accumulates row rg, columns 64 b + cq + 16 i, in registers.
-constexpr int kFTH = 2;                        // tile rows
-constexpr int kFNH = (kFTH + 2) * (kTW + 2);   // 40 haloed tokens
-constexpr int kFNC = kFTH * kTW;               // 16 central tokens
-constexpr int kFChunk = 64;                    // hidden channels per step
-constexpr int kFKS = 32;                       // k-slice of W1 staged
-constexpr int kFWS = kFKS + 4;                 // staged W1 row stride
-constexpr int kFW2S = kFChunk + 4;             // staged W2 row stride
-constexpr int kFGS = kFChunk + 1;              // g / v row stride
-constexpr int kFYS = kFChunk + 4;              // gated row stride
-constexpr int kFMaxCB = 16;                    // 64-column blocks: C <= 1024
-constexpr int kFStage = 2 * kFChunk * kFWS > kFChunk * kFW2S
-                            ? 2 * kFChunk * kFWS
-                            : kFChunk * kFW2S;
-
-__host__ inline size_t f32_smem_bytes(int C) {
-  return sizeof(float) * ((size_t)kFNH * (C + 4) + kFStage + kFNH * kFGS +
-                          kFNC * kFGS + kFNC * kFYS);
-}
+// f32 callers: LN, fc1, gate, fc2 as separate phases (see the header).
 
 __global__ void __launch_bounds__(kThreads)
-conv_glu_f32_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
-                    const float* __restrict__ ln_b,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
-                    const float* __restrict__ dwk,
-                    const float* __restrict__ dwb,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
-                    float* __restrict__ out, int H, int W, int C, int hidden,
-                    int apply_ln) {
+conv_glu_ln_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
+                   const float* __restrict__ ln_b, float* __restrict__ xn,
+                   int M, int C) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row < M)
+    dcae::warp_layernorm_row<float>(x + (size_t)row * C, ln_w, ln_b,
+                                    xn + (size_t)row * C, C, true,
+                                    threadIdx.x & 31);
+}
+
+// v = hi + lo: hi = v with its low 13 mantissa bits cleared (a tf32
+// value); lo = v - hi exactly, which the tensor core reads as tf32 by
+// dropping its own low 13 bits (an error of at most 2^-20 |v|, the size of
+// the lo * lo term the split leaves out). No conversion instruction:
+// conversions run at a fraction of the FMA rate.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// D(16x8, f32) += A(16x8, tf32) B(8x8, tf32). Fragments (lane = 4 g + q):
+// A {a0..a3} = (g, q), (g+8, q), (g, q+4), (g+8, q+4); B {b0, b1} =
+// (k q, col g), (k q+4, col g); D as for m16n8k16.
+__device__ __forceinline__ void mma_tf32_1688(float d[4], const uint32_t a[4],
+                                              const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+constexpr int kGK = 32;           // K-slice of a stage
+constexpr int kGKS = kGK + 4;     // staged row stride: conflict-free frags
+constexpr int kGStages = 3;
+
+template <int BM, int BN>
+constexpr size_t gemm_smem_bytes() {
+  return sizeof(float) * (size_t)kGStages * (BM + BN) * kGKS;
+}
+
+// Cout[m, n] = sum_k A[m, k] B[n, k] + bias[n] for m < M, in 3xTF32.
+// A: M rows of stride lda; B: N x K row-major (torch weight layout);
+// needs N % BN == 0, K % 32 == 0, lda and K multiples of 4. 8 warps as
+// 2 (M) x 4 (N); grid (N / BN, ceil(M / BM)).
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_glu_gemm_kernel(const float* __restrict__ A, int lda,
+                     const float* __restrict__ B,
+                     const float* __restrict__ bias, float* __restrict__ Cout,
+                     int ldc, int M, int K) {
+  constexpr int MT = BM / 32, NT = BN / 32;    // 16x8 tiles a warp
   extern __shared__ float smem[];
-  const int CS = C + 4;
-  float* xn = smem;                  // (40, C+4)  LN(x), haloed tile
-  float* ws = xn + kFNH * CS;        // staged W1 slice / W2 block
-  float* gs = ws + kFStage;          // (40, 65)   gate chunk, haloed
-  float* vs = gs + kFNH * kFGS;      // (16, 65)   value chunk
-  float* ys = vs + kFNC * kFGS;      // (16, 68)   gated chunk
+  float* As = smem;                                // [stage][BM][kGKS]
+  float* Bs = smem + kGStages * BM * kGKS;         // [stage][BN][kGKS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = (warp & 1) * (BM / 2), wn = (warp >> 1) * (BN / 4);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int rg = tid >> 4, cq = tid & 15;
-  const int tiles_w = (W + kTW - 1) / kTW;
-  const int tiles_h = (H + kFTH - 1) / kFTH;
-  const int b = blockIdx.x / (tiles_h * tiles_w);
-  const int r0 = (blockIdx.x / tiles_w) % tiles_h * kFTH;
-  const int c0 = blockIdx.x % tiles_w * kTW;
-
-  // haloed token u = hr * (kTW + 2) + hc sits at (r0 - 1 + hr, c0 - 1 + hc)
-  auto halo_in_image = [&](int u) {
-    const int r = r0 - 1 + u / (kTW + 2), c = c0 - 1 + u % (kTW + 2);
-    return r >= 0 && r < H && c >= 0 && c < W;
+  auto load = [&](int kt, int stage) {
+    const int k0 = kt * kGK;
+    for (int f = tid; f < BM * (kGK / 4); f += kThreads) {
+      const int r = f / (kGK / 4), c4 = f % (kGK / 4);
+      const int m = min(m0 + r, M - 1);        // rows past M: never stored
+      dcae::cp_async16(As + (stage * BM + r) * kGKS + 4 * c4,
+                       A + (size_t)m * lda + k0 + 4 * c4);
+    }
+    for (int f = tid; f < BN * (kGK / 4); f += kThreads) {
+      const int r = f / (kGK / 4), c4 = f % (kGK / 4);
+      dcae::cp_async16(Bs + (stage * BN + r) * kGKS + 4 * c4,
+                       B + (size_t)(n0 + r) * K + k0 + 4 * c4);
+    }
   };
-  // central token t = tr * kTW + tc is haloed token (tr + 1, tc + 1)
-  auto center = [&](int t) { return (t / kTW + 1) * (kTW + 2) + t % kTW + 1; };
 
-  // ---- LayerNorm of the haloed tile, one warp per token
-  for (int u = warp; u < kFNH; u += kWarps) {
-    if (halo_in_image(u)) {
-      const int r = r0 - 1 + u / (kTW + 2), c = c0 - 1 + u % (kTW + 2);
-      dcae::warp_layernorm_row<float>(x + (((size_t)b * H + r) * W + c) * C,
-                                      ln_w, ln_b, xn + u * CS, C,
-                                      apply_ln != 0, lane);
-    } else {
-      for (int k = lane; k < C; k += 32) xn[u * CS + k] = 0.f;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int ktiles = K / kGK;
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    dcae::cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    dcae::cp_async_wait<kGStages - 2>();
+    __syncthreads();    // slice kt landed; slice kt-1's stage is free
+    if (kt + kGStages - 1 < ktiles)
+      load(kt + kGStages - 1, (kt + kGStages - 1) % kGStages);
+    dcae::cp_async_commit();
+    const float* as = As + (kt % kGStages) * BM * kGKS;
+    const float* bs = Bs + (kt % kGStages) * BN * kGKS;
+#pragma unroll
+    for (int kk = 0; kk < kGK; kk += 8) {
+      // fragments by ldmatrix, f32 as 4-byte elements: A matrices (rows
+      // 0-7, k..k+3), (rows 8-15, k..), (rows 0-7, k+4..), (rows 8-15,
+      // k+4..); B two n-tiles at once, (n 0-7, k..), (n 0-7, k+4..),
+      // (n 8-15, k..), (n 8-15, k+4..)
+      uint32_t ar[MT][4], br[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        dcae::ldmatrix_x4(ar[i], as + (wm + 16 * i + (lane & 7) +
+                                       ((lane >> 3) & 1) * 8) * kGKS +
+                                     kk + (lane >> 4) * 4);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t t[4];
+        dcae::ldmatrix_x4(t, bs + (wn + 8 * j + (lane & 7) +
+                                   (lane >> 4) * 8) * kGKS +
+                                 kk + ((lane >> 3) & 1) * 4);
+        br[j][0] = t[0];
+        br[j][1] = t[1];
+        br[j + 1][0] = t[2];
+        br[j + 1][1] = t[3];
+      }
+      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(ar[i][e]), ah[i][e], al[i][e]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          split_tf32(__uint_as_float(br[j][e]), bh[j][e], bl[j][e]);
+      // each k-step's three products (small terms first) sum in a fresh
+      // partial, added to the accumulator in f32: the tensor cores' own
+      // accumulation is not round-to-nearest, and its error would grow with
+      // K if the accumulator ran through every step
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32_1688(part, al[i], bh[j]);
+          mma_tf32_1688(part, ah[i], bl[j]);
+          mma_tf32_1688(part, ah[i], bh[j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+        }
     }
   }
-  float acc[kFMaxCB][4];
-#pragma unroll
-  for (int cb = 0; cb < kFMaxCB; ++cb)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[cb][i] = 0.f;
-  const int n_cb = C / 64;
-  // this thread's haloed rows (the third exists for rg < 8; the others
-  // compute on the last row and store nothing) and its central row
-  const int hrow[3] = {rg, rg + 16, min(rg + 32, kFNH - 1)};
-  const int vrow = center(rg);
-  __syncthreads();
+  dcae::cp_async_wait<0>();
 
-  for (int k0 = 0; k0 < hidden; k0 += kFChunk) {
-    // ---- fc1 of this chunk: gate on the haloed rows, value on the tile
-    float ag[3][4], av[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = 0.f;
+  for (int j = 0; j < NT; ++j) {
+    const int n = n0 + wn + 8 * j + 2 * q;
+    const float b0 = bias[n], b1 = bias[n + 1];
 #pragma unroll
-      for (int r = 0; r < 3; ++r) ag[r][i] = 0.f;
-    }
-    for (int kk = 0; kk < C; kk += kFKS) {
-      // W1 rows [gate k0..k0+63 | value h+k0..h+k0+63], columns kk..kk+31
-      for (int f = tid; f < 2 * kFChunk * (kFKS / 4); f += kThreads) {
-        const int row = f / (kFKS / 4), c4 = f % (kFKS / 4);
-        const int src = row < kFChunk ? k0 + row : hidden + k0 + row - kFChunk;
-        *reinterpret_cast<float4*>(ws + row * kFWS + 4 * c4) =
-            *reinterpret_cast<const float4*>(w1 + (size_t)src * C + kk +
-                                             4 * c4);
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * i + g + 8 * h;
+        if (m < M)
+          *reinterpret_cast<float2*>(Cout + (size_t)m * ldc + n) =
+              make_float2(acc[i][j][2 * h] + b0, acc[i][j][2 * h + 1] + b1);
       }
-      __syncthreads();
-#pragma unroll 2
-      for (int k = 0; k < kFKS; k += 4) {
-        float4 xg[3], wg[4], wv[4];
-#pragma unroll
-        for (int r = 0; r < 3; ++r) xg[r] = lds4(xn + hrow[r] * CS + kk + k);
-        const float4 xv = lds4(xn + vrow * CS + kk + k);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          wg[i] = lds4(ws + (cq + 16 * i) * kFWS + k);
-          wv[i] = lds4(ws + (kFChunk + cq + 16 * i) * kFWS + k);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int r = 0; r < 3; ++r) ag[r][i] = fma4(xg[r], wg[i], ag[r][i]);
-          av[i] = fma4(xv, wv[i], av[i]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ch = cq + 16 * i;
-      const float bg = b1[k0 + ch], bv = b1[hidden + k0 + ch];
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        const int u = rg + 16 * r;
-        if (u < kFNH) gs[u * kFGS + ch] = halo_in_image(u) ? ag[r][i] + bg : 0.f;
-      }
-      vs[rg * kFGS + ch] = av[i] + bv;
-    }
-    __syncthreads();
-
-    // ---- depthwise 3x3 (cross-correlation) + GELU gate
-    for (int e = tid; e < kFNC * kFChunk; e += kThreads) {
-      const int t = e / kFChunk, j = e % kFChunk, n = k0 + j;
-      const int tr = t / kTW, tc = t % kTW;
-      float s = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          s = fmaf(gs[((tr + dy) * (kTW + 2) + tc + dx) * kFGS + j],
-                   dwk[n * 9 + dy * 3 + dx], s);
-      s += dwb[n];
-      ys[t * kFYS + j] = gelu(s) * vs[t * kFGS + j];
-    }
-    __syncthreads();
-
-    // ---- fc2 partial, W2 streamed in 64-column blocks
-#pragma unroll
-    for (int cb = 0; cb < kFMaxCB; ++cb) {
-      if (cb >= n_cb) break;
-      for (int f = tid; f < 64 * (kFChunk / 4); f += kThreads) {
-        const int row = f / (kFChunk / 4), c4 = f % (kFChunk / 4);
-        *reinterpret_cast<float4*>(ws + row * kFW2S + 4 * c4) =
-            *reinterpret_cast<const float4*>(
-                w2 + (size_t)(64 * cb + row) * hidden + k0 + 4 * c4);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kFChunk; k += 4) {
-        const float4 yv = lds4(ys + rg * kFYS + k);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[cb][i] = fma4(yv, lds4(ws + (cq + 16 * i) * kFW2S + k),
-                            acc[cb][i]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // ---- out = acc + b2 for the tile's tokens inside the image
-  const int r = r0 + rg / kTW, c = c0 + rg % kTW;
-  if (r < H && c < W) {
-    float* orow = out + (((size_t)b * H + r) * W + c) * C;
-#pragma unroll
-    for (int cb = 0; cb < kFMaxCB; ++cb) {
-      if (cb >= n_cb) break;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = 64 * cb + cq + 16 * i;
-        orow[col] = acc[cb][i] + b2[col];
-      }
-    }
   }
 }
 
+// gv: (M, 2h) rows [g | v] of the tokens of (B, H, W); v <- GELU(dwconv3x3
+// (g) + dwb) * v, one thread per (token, hidden channel). In place: v of a
+// token is read and written only by its own thread, and g is never written.
+__global__ void __launch_bounds__(kThreads)
+conv_glu_gate_kernel(float* __restrict__ gv, const float* __restrict__ dwk,
+                     const float* __restrict__ dwb, int M, int H, int W,
+                     int hidden) {
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (size_t)M * hidden) return;
+  const int t = (int)(e / hidden), n = (int)(e % hidden);
+  const int r = (t / W) % H, c = t % W;
+  const size_t ld = 2 * (size_t)hidden;
+  float s = 0.f;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int rr = r + dy - 1, cc = c + dx - 1;
+      const float gn = rr >= 0 && rr < H && cc >= 0 && cc < W
+                           ? gv[(size_t)(t + (dy - 1) * W + dx - 1) * ld + n]
+                           : 0.f;
+      s = fmaf(gn, dwk[n * 9 + dy * 3 + dx], s);
+    }
+  s += dwb[n];
+  float* v = gv + (size_t)t * ld + hidden + n;
+  *v = gelu(s) * *v;
+}
+
+constexpr int kFc1BM = 128, kFc1BN = 128, kFc2BM = 64, kFc2BN = 64;
+
 // ---------------------------------------------------------------------------
-// bf16 callers: the same tile walk with the three products on the tensor
+// bf16 callers: a haloed tile walk with the three products on the tensor
 // cores (mma.sync m16n8k16, f32 accumulate). The tile is fixed at 4 x 8
 // tokens: 60 haloed rows (padded to 4 m-tiles) and 32 central rows (2
 // m-tiles); hidden channels go 64 at a time (8 n-tiles, one per warp), and
@@ -486,50 +496,82 @@ int launch_mma(const void* x, const void* ln_w, const void* ln_b,
   return (int)cudaGetLastError();
 }
 
-int launch_f32(const void* x, const void* ln_w, const void* ln_b,
-               const void* w1, const void* b1, const void* dwk,
-               const void* dwb, const void* w2, const void* b2, void* out,
-               int B, int H, int W, int C, int hidden, int apply_ln,
-               cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(C);
+template <int BM, int BN>
+cudaError_t launch_gemm(const float* A, int lda, const float* Bw,
+                        const float* bias, float* Cout, int ldc, int M, int N,
+                        int K, cudaStream_t stream) {
+  constexpr size_t smem = gemm_smem_bytes<BM, BN>();
   cudaError_t err = cudaFuncSetAttribute(
-      conv_glu_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      conv_glu_gemm_kernel<BM, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(N / BN, (M + BM - 1) / BM);
+  conv_glu_gemm_kernel<BM, BN><<<grid, kThreads, smem, stream>>>(
+      A, lda, Bw, bias, Cout, ldc, M, K);
+  return cudaGetLastError();
+}
+
+int launch_f32(const float* x, const float* ln_w, const float* ln_b,
+               const float* w1, const float* b1, const float* dwk,
+               const float* dwb, const float* w2, const float* b2,
+               float* out, float* scratch, int B, int H, int W, int C,
+               int hidden, int apply_ln, cudaStream_t stream) {
+  const int M = B * H * W;
+  float* xn = scratch;                         // (M, C)  LN(x)
+  float* gv = scratch + (size_t)M * C;         // (M, 2h) [g | v], then [g | y]
+  cudaError_t err;
+  if (apply_ln) {
+    conv_glu_ln_kernel<<<(M + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+        x, ln_w, ln_b, xn, M, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  err = launch_gemm<kFc1BM, kFc1BN>(apply_ln ? xn : x, C, w1, b1, gv,
+                                    2 * hidden, M, 2 * hidden, C, stream);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = B * ((H + kFTH - 1) / kFTH) * ((W + kTW - 1) / kTW);
-  conv_glu_f32_kernel<<<tiles, kThreads, smem, stream>>>(
-      (const float*)x, (const float*)ln_w, (const float*)ln_b,
-      (const float*)w1, (const float*)b1, (const float*)dwk,
-      (const float*)dwb, (const float*)w2, (const float*)b2, (float*)out, H,
-      W, C, hidden, apply_ln);
-  return (int)cudaGetLastError();
+  const size_t n = (size_t)M * hidden;
+  conv_glu_gate_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+                         0, stream>>>(gv, dwk, dwb, M, H, W, hidden);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_gemm<kFc2BM, kFc2BN>(gv + hidden, 2 * hidden, w2, b2,
+                                          out, C, M, C, hidden, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the kernel asks for at width C (bf16: tensor-core kernel;
-// f32: CUDA-core kernel).
+// Shared memory the kernel asks for at width C (bf16: tensor-core tile
+// kernel; f32: the larger of the two GEMMs).
 long long dcae_conv_glu_smem(int C, int bf16) {
-  return (long long)(bf16 ? mma_smem_bytes(C) : f32_smem_bytes(C));
+  return (long long)(bf16 ? mma_smem_bytes(C)
+                          : gemm_smem_bytes<kFc1BM, kFc1BN>());
+}
+
+// f32 scratch the kernel needs, in floats (bf16 needs none): LN(x) and
+// [g | v] of every token.
+long long dcae_conv_glu_scratch(int B, int H, int W, int C, int hidden,
+                                int bf16) {
+  return bf16 ? 0 : (long long)B * H * W * (C + 2 * (long long)hidden);
 }
 
 // x, out: (B, H, W, C) contiguous; weights in torch layout: w1 (2h, C)
 // packed [gate | value], b1 (2h), dwk (h, 1, 3, 3), dwb (h), w2 (C, h),
 // b2 (C); ln_w, ln_b (C), read only when apply_ln. All of one dtype: f32
-// (bf16 == 0: CUDA-core kernel, C % 64 == 0, C <= 1024, h % 64 == 0) or
-// bf16 (bf16 == 1: tensor-core kernel, C % 16 == 0, C <= 512,
-// h % 64 == 0). Returns the CUDA error of the launch.
+// (bf16 == 0: 3xTF32 GEMM phases, C % 64 == 0, h % 64 == 0, `scratch` of
+// dcae_conv_glu_scratch floats) or bf16 (bf16 == 1: tensor-core tile
+// kernel, C % 16 == 0, C <= 512, h % 64 == 0, `scratch` unused). Returns
+// the CUDA error of the launches.
 int dcae_conv_glu(const void* x, const void* ln_w, const void* ln_b,
                   const void* w1, const void* b1, const void* dwk,
                   const void* dwb, const void* w2, const void* b2, void* out,
-                  int B, int H, int W, int C, int hidden, int apply_ln,
-                  int bf16, void* stream) {
+                  void* scratch, int B, int H, int W, int C, int hidden,
+                  int apply_ln, int bf16, void* stream) {
   if (bf16)
     return launch_mma(x, ln_w, ln_b, w1, b1, dwk, dwb, w2, b2, out, B, H, W,
                       C, hidden, apply_ln, (cudaStream_t)stream);
-  return launch_f32(x, ln_w, ln_b, w1, b1, dwk, dwb, w2, b2, out, B, H, W, C,
+  using F = const float*;
+  return launch_f32((F)x, (F)ln_w, (F)ln_b, (F)w1, (F)b1, (F)dwk, (F)dwb,
+                    (F)w2, (F)b2, (float*)out, (float*)scratch, B, H, W, C,
                     hidden, apply_ln, (cudaStream_t)stream);
 }
 

@@ -55,8 +55,9 @@ def conv_glu_ref(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
 @functools.cache
 def _entry():
     lib = _build.load_kernel("conv_glu")
-    return (_build.bind(lib, "dcae_conv_glu", 10, 7),
-            _build.bind_query(lib, "dcae_conv_glu_smem", 2))
+    return (_build.bind(lib, "dcae_conv_glu", 11, 7),
+            _build.bind_query(lib, "dcae_conv_glu_smem", 2),
+            _build.bind_query(lib, "dcae_conv_glu_scratch", 6))
 
 
 def conv_glu(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
@@ -77,24 +78,28 @@ def conv_glu(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
     params = (ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2)
     _build.kernel_operands("conv_glu", x, params)
     bf16 = x.dtype == torch.bfloat16
-    # both kernels walk h in chunks of 64; f32 (CUDA cores) streams C in
-    # 64-column blocks, bf16 (tensor cores) in 16-deep steps; the fc2
-    # accumulator lives in registers, which bounds C
+    # bf16 (a tile walk) takes h in chunks of 64 and C in 16-deep steps,
+    # its fc2 accumulator in registers bounding C; f32 (GEMM phases) takes
+    # fc1 columns in 128-wide tiles and fc2 columns in 64-wide ones
     widths_ok = h % 64 == 0 and ((C % 16 == 0 and C <= 512) if bf16 else
-                                 (C % 64 == 0 and C <= 1024))
+                                 C % 64 == 0)
     if not widths_ok or tuple(w1.shape) != (2 * h, C) or \
             tuple(w2.shape) != (C, h) or tuple(dw_w.shape) != (h, 1, 3, 3):
         raise ValueError(f"conv_glu: unsupported widths C={C}, h={h} for "
                          f"{x.dtype}")
-    fn, smem = _entry()
+    fn, smem, scratch_len = _entry()
     if smem(C, int(bf16)) > _build.SMEM_LIMIT:
         raise ValueError(f"conv_glu: C={C} needs more shared memory than a "
                          "block has")
     out = torch.empty_like(x)
+    n_scratch = scratch_len(B, H, W, C, h, int(bf16))
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+               if n_scratch else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), *(p.data_ptr() for p in params),
-                out.data_ptr(), B, H, W, C, h, int(apply_ln), int(bf16),
+                out.data_ptr(), None if scratch is None else
+                scratch.data_ptr(), B, H, W, C, h, int(apply_ln), int(bf16),
                 stream)
     _build.check(rc, "conv_glu")
     conv_glu.launches += 1

@@ -112,8 +112,8 @@ def wmsa_block_ref(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, *,
 @functools.cache
 def _entries():
     lib = _build.load_kernel("wmsa_block")
-    return {"wmsa_block": _build.bind(lib, "dcae_wmsa_block", 10, 7),
-            "wmsa_attention": _build.bind(lib, "dcae_wmsa_attention", 7, 7),
+    return {"wmsa_block": _build.bind(lib, "dcae_wmsa_block", 11, 7),
+            "wmsa_attention": _build.bind(lib, "dcae_wmsa_attention", 8, 7),
             "smem": _build.bind_query(lib, "dcae_wmsa_block_smem", 3)}
 
 
@@ -138,9 +138,11 @@ def launch(what: str, x, params, *, heads: int, shifted: bool
     wqkv, rel = params[-5], params[-1]
     bf16 = x.dtype == torch.bfloat16
     # f32: CUDA-core kernel, float4 rows; bf16: tensor-core kernel, 16-deep
-    # products over C and 8-wide head tiles
-    widths_ok = (C % 16 == 0 and (C // heads) % 8 == 0) if bf16 else \
-        C % 4 == 0
+    # products over C, 8-wide head tiles, LN rows and head outputs held in
+    # registers (C <= 256, head_dim <= 32)
+    hd = C // heads
+    widths_ok = (C % 16 == 0 and hd % 8 == 0 and C <= 256 and hd <= 32) \
+        if bf16 else C % 4 == 0
     if not widths_ok or tuple(wqkv.shape) != (3 * C, C) or \
             tuple(rel.shape) != (heads, 2 * WINDOW - 1, 2 * WINDOW - 1):
         raise ValueError(f"{what}: unsupported widths or weight shapes")
@@ -149,11 +151,15 @@ def launch(what: str, x, params, *, heads: int, shifted: bool
         raise ValueError(f"{what}: C={C} needs more shared memory than a "
                          "block has")
     out = torch.empty_like(x)
+    # bf16: the kernel packs [Wqkv; Wproj] here for its bulk copies
+    scratch = torch.empty(4 * C * C, dtype=x.dtype, device=x.device) \
+        if bf16 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = entries[what](x.data_ptr(), *(p.data_ptr() for p in params),
-                           out.data_ptr(), B, H, W, C, heads, int(shifted),
-                           int(bf16), stream)
+                           out.data_ptr(), None if scratch is None else
+                           scratch.data_ptr(), B, H, W, C, heads,
+                           int(shifted), int(bf16), stream)
     _build.check(rc, what)
     return out
 

@@ -121,3 +121,75 @@ def test_conv_glu_kernel(card, dtype, C, h):
     want = cg.conv_glu_ref(x, *args)
     assert _rel_err(got, want) <= TOL[dtype]
     assert torch.equal(got, cg.conv_glu(x, *args))   # deterministic
+
+
+def _wmsa_call(entry, rng, dt, shape, C, heads, shifted):
+    """(kernel out, plain out, kernel again) of one wmsa entry."""
+    b = C ** -0.5
+    x = torch.from_numpy(rng.normal(size=(*shape, C)).astype(
+        np.float32)).cuda().to(dt)
+    spec = [((3 * C, C), lambda r, s: _uniform(r, s, b)),
+            ((3 * C,), lambda r, s: _uniform(r, s, b)),
+            ((C, C), lambda r, s: _uniform(r, s, b)),
+            ((C,), lambda r, s: _uniform(r, s, b)),
+            ((heads, 15, 15), lambda r, s: 0.02 * r.normal(size=s))]
+    if entry == "wmsa_block":
+        spec = [((C,), lambda r, s: 1 + 0.1 * r.normal(size=s)),
+                ((C,), lambda r, s: 0.1 * r.normal(size=s)),
+                ((C,), lambda r, s: 1 + 0.1 * r.normal(size=s))] + spec
+        fn, ref = wm.wmsa_block, wm.wmsa_block_ref
+    else:
+        fn, ref = wa.wmsa_attention, wa.wmsa_attention_ref
+    args = _args(rng, dt, spec)
+    kw = dict(heads=heads, shifted=shifted)
+    return fn(x, *args, **kw), ref(x, *args, **kw), fn(x, *args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["wmsa_block", "wmsa_attention"])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("C,heads", [(96, 12), (144, 9), (256, 8)])
+@pytest.mark.parametrize("shape", [(1, 8, 24), (2, 16, 24), (2, 96, 96)])
+def test_wmsa_bf16_window_counts(card, entry, shifted, C, heads, shape):
+    """3 and 12 windows: fewer than the persistent grid; 288: more than
+    the grid (132 or 264 blocks on an H100) and not a multiple of it, so
+    some blocks walk two windows and others one. At the three path widths
+    (head_dim 8, 16, 32); W and SW; one window row (H = 8), where the
+    bottom row is the only row."""
+    rng = np.random.default_rng(17)
+    got, want, again = _wmsa_call(entry, rng, torch.bfloat16, shape, C,
+                                  heads, shifted)
+    assert got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel_err(got, want) <= TOL["bfloat16"]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apply_ln", [True, False])
+@pytest.mark.parametrize("C,h", [(640, 1280), (128, 256)])
+@pytest.mark.parametrize("shape", [(1, 7, 9), (2, 12, 23)])
+def test_conv_glu_f32_tiles(card, shape, C, h, apply_ln):
+    """The f32 GEMM phases at token counts below one tile (63) and not a
+    multiple of either tile (552), with and without the LN; bitwise
+    repeatable."""
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.normal(size=(*shape, C)).astype(
+        np.float32)).cuda()
+    args = _args(rng, torch.float32, [
+        ((C,), lambda r, s: 1 + 0.1 * r.normal(size=s)),
+        ((C,), lambda r, s: 0.1 * r.normal(size=s)),
+        ((2 * h, C), lambda r, s: _uniform(r, s, C ** -0.5)),
+        ((2 * h,), lambda r, s: _uniform(r, s, C ** -0.5)),
+        ((h, 1, 3, 3), lambda r, s: _uniform(r, s, 1 / 3)),
+        ((h,), lambda r, s: _uniform(r, s, 1 / 3)),
+        ((C, h), lambda r, s: _uniform(r, s, h ** -0.5)),
+        ((C,), lambda r, s: _uniform(r, s, h ** -0.5)),
+    ])
+    before = cg.conv_glu.launches
+    got = cg.conv_glu(x, *args, apply_ln=apply_ln)
+    want = cg.conv_glu_ref(x, *args, apply_ln=apply_ln)
+    assert cg.conv_glu.launches == before + 1
+    assert _rel_err(got, want) <= TOL["float32"]
+    for _ in range(3):
+        assert torch.equal(got, cg.conv_glu(x, *args, apply_ln=apply_ln))
