@@ -10,8 +10,8 @@ Phases, in order:
   kernels    each kernel against its plain PyTorch version on the card at
              the main path's shapes (batch 2 of 768x512), with times, the
              least time the card could take (bound) and, for wmsa_block and
-             wmsa_attention, an SDPA call as yardstick; the f32 DCA
-             conv_glu must be bitwise repeatable.
+             wmsa_attention, an SDPA call as yardstick; conv_glu must be
+             bitwise repeatable in both dtypes.
   reference  the full-width f32 model on the card against the same weights
              on the CPU (plain versions), on a 128x128 image.
   slice      the full-size bf16 codec (seeded random weights) on 2
@@ -31,6 +31,9 @@ Phases, in order:
              it and read just after; each must show its kernels.
   profile    (only with --phase profile) device time of one slice run by
              kernel, from torch.profiler.
+  bands      (only with --phase bands) the bf16 conv_glu call at the path's
+             shape walked in bands of 12, 24 and 48 MiB of [g | v], and
+             what the host spends to enqueue one call.
 
 Exits non-zero (and prints no result) without a CUDA device or on any
 failed check. The last line is {"ok": true, "device": {...}}.
@@ -247,7 +250,7 @@ def kernel_phase(gen) -> dict:
         err = rel_err(got, want)
         repeat = bool(torch.equal(got, again))
         ok = bool(torch.isfinite(got.float()).all()) and err <= TOL[dtype] \
-            and (dtype != "float32" or repeat)
+            and repeat
         tokens = BATCH * H * W
         esize = x.element_size()
         nbytes = 2 * x.numel() * esize + sum(t.numel() for t in p) * esize
@@ -645,15 +648,17 @@ def profile_phase() -> None:
         for e in events:
             name = e.key
             # both wmsa entries share wmsa_{mma,pack,fma}_kernel<kBlock>;
-            # every conv_glu phase (ln, gemm, gate; the bf16 tile kernel)
-            # carries conv_glu in its name and is tested before "gemm";
+            # every conv_glu phase (ln / rows, pack, gemm, gate) carries
+            # conv_glu in its name, the bf16 ones conv_glu_bf16, and is
+            # tested before "gemm";
             # cuDNN's implicit-GEMM convolutions (fprop, dgrad) are
             # convolutions, not matrix products
             low = name.lower()
             g = ("wmsa_attention kernels" if "wmsa_" in name
                  and "<false>" in name
                  else "wmsa_block kernels" if "wmsa_" in name else
-                 "conv_glu kernels" if "conv_glu" in name else
+                 "conv_glu bf16 kernels" if "conv_glu_bf16" in name else
+                 "conv_glu f32 kernels" if "conv_glu" in name else
                  "convolution" if any(k in low for k in (
                      "conv", "cudnn", "fprop", "dgrad", "wgrad")) else
                  "gemm" if "gemm" in low or "cutlass" in low else "other")
@@ -664,18 +669,59 @@ def profile_phase() -> None:
               f"({100 * busy_ms / (wall * 1e3):.1f}%)", flush=True)
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"profile {label} group {g}: {ms:.2f} ms", flush=True)
-        for e in sorted(events, key=dev, reverse=True)[:15]:
+        # the 15 longest, and every conv_glu phase kernel
+        ranked = sorted(events, key=dev, reverse=True)
+        for e in ranked[:15] + [e for e in ranked[15:]
+                                if "conv_glu" in e.key]:
             print(f"profile {label} kernel {dev(e) / 1e3:9.3f} ms "
                   f"x{e.count:4d}  {e.key[:90]}", flush=True)
     codec.close()
 
 
+def bands_phase(gen) -> None:
+    """The bf16 stage-3 conv_glu call under three band sizes (4, 2 and 1
+    bands at this shape), each against the plain version, and the host time
+    to enqueue a call at the shipped band size."""
+    import torch
+    from dcae_tpu_torch.ops.kernels import conv_glu as cg
+
+    label, H, W, C, hidden, dtype, _ = CONV_GLU_CASES[0]
+    x, p = conv_glu_inputs(H, W, C, hidden, getattr(torch, dtype), gen)
+    want = cg.conv_glu_ref(x, *p)
+    shipped = cg.BAND_BYTES
+    for mib in (12, 24, 48):
+        cg.BAND_BYTES = mib << 20
+        n = len(cg.band_plan(BATCH, H, W, hidden))
+        err = rel_err(cg.conv_glu(x, *p), want)
+        runs = [time_ms(lambda: cg.conv_glu(x, *p), iters=20)
+                for _ in range(3)]
+        print(f"bands {label}: {mib} MiB a band, {n} bands: rel err "
+              f"{err:.3e}, ms {runs}", flush=True)
+        if err > TOL[dtype]:
+            fail(f"conv_glu in bands of {mib} MiB disagrees")
+    cg.BAND_BYTES = shipped
+    # 20 calls fit the launch queue, 200 fill it: then the host waits
+    for calls in (20, 200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            cg.conv_glu(x, *p)
+        enqueue = (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) / calls
+        print(f"bands {label}: {calls} calls: host enqueue "
+              f"{enqueue * 1e6:.1f} us a call, {total * 1e6:.1f} us a call "
+              f"with the device drained", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "reference",
-                                        "slice", "profile"), default="all",
+                                        "slice", "profile", "bands"),
+                    default="all",
                     help="one phase only; profile (not part of all) traces "
-                    "the slice with torch.profiler")
+                    "the slice with torch.profiler; bands (not part of all) "
+                    "times the bf16 conv_glu under three band sizes")
     args = ap.parse_args()
 
     import torch
@@ -711,6 +757,8 @@ def main() -> int:
         slice_res = slice_phase()
     if args.phase == "profile":
         profile_phase()
+    if args.phase == "bands":
+        bands_phase(gen)
     if results is not None and slice_res is not None:
         # each kernel's launches on the path that runs it: wmsa_block and
         # conv_glu on the default codec, wmsa_attention on the

@@ -84,32 +84,19 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t b[2],
       : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(row))));
 }
 
-// A fragment of rows (row_lo, row_hi) = (g, g+8) of a row-major bf16 tile
-// at column k.
-__device__ __forceinline__ void load_a(uint32_t a[4],
-                                       const __nv_bfloat16* row_lo,
-                                       const __nv_bfloat16* row_hi, int k,
-                                       int q) {
-  a[0] = ld_pair(row_lo + k + 2 * q);
-  a[1] = ld_pair(row_hi + k + 2 * q);
-  a[2] = ld_pair(row_lo + k + 2 * q + 8);
-  a[3] = ld_pair(row_hi + k + 2 * q + 8);
-}
-
-// B fragment from a torch-layout weight row (out channel g of the n-tile,
-// input channels contiguous) at input channel k.
-__device__ __forceinline__ void load_b(uint32_t b[2],
-                                       const __nv_bfloat16* wrow, int k,
-                                       int q) {
-  b[0] = ld_pair(wrow + k + 2 * q);
-  b[1] = ld_pair(wrow + k + 2 * q + 8);
-}
-
 // ---- asynchronous global -> shared copies (cp.async, 16 bytes a thread)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));
+}
+
+// The same, or 16 bytes of zeros when `valid` is false (nothing is read).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -178,11 +165,33 @@ __device__ __forceinline__ int blocked(int r, int k, int K) {
   return ((r >> 3) * (K >> 3) + (k >> 3)) * 64 + (r & 7) * 8 + (k & 7);
 }
 
+// Descriptor of an operand of core matrices starting at `p` (16-byte
+// aligned): `lbo` bytes from a core matrix to the next along K, `sbo` bytes
+// to the next 8 rows.
+__device__ __forceinline__ uint64_t wgmma_desc_strided(const void* p,
+                                                       uint64_t lbo,
+                                                       uint64_t sbo) {
+  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32);
+}
+
 // Descriptor of a blocked operand starting at `p` (16-byte aligned), K wide.
 __device__ __forceinline__ uint64_t wgmma_desc(const void* p, int K) {
-  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  const uint64_t lbo = 128, sbo = 16 * (uint64_t)K;
-  return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32);
+  return wgmma_desc_strided(p, 128, 16 * (uint64_t)K);
+}
+
+// The same core matrices in the order a GEMM tile streams them: a rows x K
+// operand is cut into tiles of kTileRows rows, and inside a tile the core
+// matrices of one 8-wide K step (all 16 row groups, 2 KB) are contiguous,
+// K step after K step. So any K-slice of a tile is one contiguous piece
+// (one bulk copy), and in shared memory a slice has lbo = 2 KB, sbo = 128 B.
+constexpr int kTileRows = 128;
+constexpr int kTileLbo = kTileRows / 8 * 128;   // bytes between K steps
+
+__host__ __device__ __forceinline__ size_t tiled(int r, int k, int K) {
+  return (size_t)(r / kTileRows) * kTileRows * K +
+         (size_t)((k >> 3) * (kTileRows / 8) + ((r % kTileRows) >> 3)) * 64 +
+         (r & 7) * 8 + (k & 7);
 }
 
 // Writes of the generic proxy (stores, cp.async) to shared memory become
@@ -195,9 +204,19 @@ __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_commit_wait() {
+__device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  wgmma_commit();
+  wgmma_wait<0>();
 }
 
 // D(64 x 32, f32) += A(64 x 16) B(32 x 16)^T by one warpgroup. Warp w of the
@@ -214,6 +233,36 @@ __device__ __forceinline__ void wgmma_m64n32k16(float d[16], uint64_t da,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// D(64 x 128, f32) += A(64 x 16) B(128 x 16)^T by one warpgroup: d[4 j + e]
+// as for m64n32k16, with j up to 16.
+__device__ __forceinline__ void wgmma_m64n128k16(float d[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1)
       : "memory");
 }

@@ -7,22 +7,25 @@
 // the 2h-wide fc1 output in VMEM and writes only the output.
 //
 // What bounds it on the H100: 6*C*h flops per token (fc1 + fc2) against
-// 2-4*C bytes, so it is operation-bound. Two designs, by dtype:
+// 2-4*C bytes, so it is operation-bound. That kernel's shape, a haloed tile
+// walk cut to the 227 KB of a block's shared memory, would recompute the
+// gate half of fc1 on every halo (1.5x fc1's flops), stream all of W1 and
+// W2 through every block and leave the products in tiles far too small for
+// the tensor cores. So both dtypes run the same phases, each shaped for
+// the card, with [g | v] in an f32 scratch no larger than the 50 MB L2:
+//   LN            LN(x), skipped by f32 callers without LN;
+//   fc1           a GEMM on 128 x 128 tiles: [g | v] + b1, f32;
+//   gate          GELU(dwconv3x3(g) + dwb) * v, once per element;
+//   fc2           a GEMM: out = y W2^T + b2.
+// The gate is computed once per element, not per output tile: fused into
+// fc2's operand load it would be recomputed for every column tile.
 //
 // f32 callers (the entropy-side DCA GLU, C=640, h=1280, which must stay
 // f32 and bitwise repeatable): on the CUDA cores the bound is the f32 rate,
-// 67 TFLOP/s. The TPU kernel's shape, a haloed tile walk cut to 227 KB of
-// shared memory, would recompute the gate half of fc1 on every halo (1.5x
-// the flops), fill 1.45 waves at one block an SM and stream all of W1 and
-// W2 through every block. So the f32 path is four phases, each shaped for
-// the card, with g and v in a scratch of 2 x tokens x h f32 that stays
-// mostly in the 50 MB L2:
-//   conv_glu_ln_kernel     LN(x) into scratch (skipped without LN);
-//   conv_glu_gemm_kernel   fc1 as a GEMM on 128 x 128 tiles: g | v + b1;
-//   conv_glu_gate_kernel   v <- GELU(dwconv3x3(g) + dwb) * v, in place;
-//   conv_glu_gemm_kernel   fc2 as a GEMM on 64 x 64 tiles (enough tiles
-//                          for ~2 waves at C=640): out = y W2^T + b2.
-// The products run on the tensor cores in 3xTF32 (mma.sync m16n8k8): each
+// 67 TFLOP/s. Kernels conv_glu_ln_kernel, conv_glu_gemm_kernel (fc1 on
+// 128 x 128 tiles, fc2 on 64 x 64 tiles: enough tiles for ~2 waves at
+// C=640) and conv_glu_gate_kernel (in place on v). The
+// products run on the tensor cores in 3xTF32 (mma.sync m16n8k8): each
 // operand is split as a = hi + lo, and hi*hi + hi*lo + lo*hi accumulate in
 // f32: f32-class accuracy from three products at the TF32 rate (495
 // TFLOP/s) instead of one at the f32 FMA rate (67 TFLOP/s), a ceiling 2.5x
@@ -30,24 +33,49 @@
 // of operand K-slices, each slice read once per tile. The split uses no
 // conversion instruction (see split_tf32), and each k-step's three
 // products sum in a fresh partial that is added to the accumulator in f32
-// (the tensor cores' own accumulation truncates). The gate is computed
-// once per element, not per output tile: fused into fc2's operand load it
-// would be recomputed for every one of the C/64 column tiles.
+// (the tensor cores' own accumulation truncates).
 //
-// bf16 callers (the stage-3 GLUs): conv_glu_mma_kernel, a haloed tile
-// walk on mma.sync m16n8k16. A block owns 4 x 8 output tokens with a
-// one-pixel halo, walks the hidden width in chunks of 64 (gate on the
-// haloed tile, value on the tile, 3x3 conv, GELU * v, fc2 partial into a
-// register accumulator), and keeps the LN'd haloed tile in shared memory.
+// bf16 callers (the stage-3 GLUs, C=256, h=512): the bound is the bf16
+// tensor-core rate, 989 TFLOP/s, which only wgmma reaches, and wgmma
+// wants both operands in shared memory as 8 x 8 core matrices. Kernels
+// conv_glu_bf16_*:
+//   prepare  writes bf16(LN(x)) (or x) straight into the order fc1 reads: a
+//          tile of 128 rows, K step after K step (dcae::tiled), so that
+//          any K-slice of a tile is one contiguous 16 KB piece; its last
+//          blocks lay [W1; W2] out the same way, once a call (768 KB), and
+//          the conv taps as f32, tap after tap;
+//   gemm   128 x 128 tiles, two warpgroups on m64n128k16, f32 accumulators
+//          in registers; one thread feeds a 3-stage ring of K-slices with
+//          one bulk copy (the TMA engine, no tensor map) an operand and
+//          slice, completing on an mbarrier, and refills a stage while the
+//          next slice multiplies; 96 KB a block, two blocks an SM, so one
+//          tile's epilogue overlaps another's products. fc1 writes [g | v]
+//          in f32 (g and v are not rounded before the gate); fc2 writes
+//          the bf16 result;
+//   gate   persistent blocks walk tiles of 8 rows x 16 columns x 64
+//          channels: a tile's g and halo come to shared memory by cp.async
+//          while the tile before is computed (the sums are bound by
+//          instructions, the loads by latency); a thread owns a column and
+//          four channels and walks down the rows, reading each row of g
+//          once and keeping the three partial row sums in registers; y is
+//          rounded to bf16 (fc2's operand) and written in fc2's tiled order.
+// The call is walked in bands of rows (the wrapper's plan), fc1 and gate
+// back to back on one reused scratch, fc1 covering the band's rows and the
+// one row of g above and below that lies in the same image; a band holds
+// at most 48 MiB of [g | v], the size of the L2 and the whole of a call at
+// the model's shape. (Bands of a quarter of that keep [g | v] in L2 but
+// make every launch a partial wave of short blocks, and measured slower.)
+// y of all bands (bf16, a quarter of [g | v]) waits in L2 for one fc2 over
+// every row, which fills the card better than a band's fc2 would.
 //
 // Both: zero padding of the conv lives in g-space (an out-of-image
-// neighbour contributes g = 0, not fc1(LN(0)) + b1); GELU is exact (erff,
-// within 2 ulp; the TPU kernel used an Abramowitz-Stegun erf with 1.5e-7
-// error); bf16 callers get bf16 operands at the two products' inputs and
-// f32 accumulation, LN, conv and GELU; f32 callers stay f32. Every sum runs
-// in a fixed order without atomics, so the result is bitwise repeatable
-// from launch to launch: the entropy side needs that for encoder/decoder
-// agreement.
+// neighbour contributes g = 0, not fc1(LN(0)) + b1); bf16 callers get bf16
+// operands at the two products' inputs and f32 accumulation, LN, conv and
+// GELU; f32 callers stay f32. GELU's erf is erff for f32 callers (within
+// 2 ulp) and, for bf16 callers, the TPU kernel's own Abramowitz-Stegun
+// form (1.5e-7), far below y's rounding to bf16. Every sum runs in a fixed
+// order without atomics, so the result is bitwise repeatable from launch
+// to launch: the entropy side needs that for encoder/decoder agreement.
 #include <math.h>
 #include <stdint.h>
 
@@ -59,14 +87,13 @@ using dcae::to_f;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTW = 8;            // bf16 tile width (tokens)
 
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
 // ---------------------------------------------------------------------------
-// f32 callers: LN, fc1, gate, fc2 as separate phases (see the header).
+// f32 callers (see the header).
 
 __global__ void __launch_bounds__(kThreads)
 conv_glu_ln_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
@@ -267,233 +294,486 @@ conv_glu_gate_kernel(float* __restrict__ gv, const float* __restrict__ dwk,
 constexpr int kFc1BM = 128, kFc1BN = 128, kFc2BM = 64, kFc2BN = 64;
 
 // ---------------------------------------------------------------------------
-// bf16 callers: a haloed tile walk with the three products on the tensor
-// cores (mma.sync m16n8k16, f32 accumulate). The tile is fixed at 4 x 8
-// tokens: 60 haloed rows (padded to 4 m-tiles) and 32 central rows (2
-// m-tiles); hidden channels go 64 at a time (8 n-tiles, one per warp), and
-// the fc2 accumulator of the tile (32 x C f32) lives in registers, warp w
-// holding the n-tiles w, w+8, ... of both m-tiles.
-constexpr int kMTH = 4;                        // tile rows
-constexpr int kMNH = (kMTH + 2) * (kTW + 2);   // 60 haloed tokens
-constexpr int kMRows = 64;                     // haloed rows padded to 16s
-constexpr int kMNC = kMTH * kTW;               // 32 central tokens
-constexpr int kMChunk = 64;                    // hidden channels per step
-constexpr int kMGS = kMChunk + 1;              // g / v row stride (f32)
-constexpr int kMYS = kMChunk + 8;              // gated row stride (bf16)
-constexpr int kMMaxNT = 8;                     // fc2 n-tiles a warp: C <= 512
+// bf16 callers: prepare, fc1, gate, fc2 (see the header). Activations and
+// weights meet the products in dcae::tiled order, so that every operand
+// slice is one bulk copy and needs no conversion in shared memory.
+using bf16 = __nv_bfloat16;
 
-__host__ __device__ inline int mma_row_stride(int C) { return C + 8; }
+constexpr int kTile = dcae::kTileRows;   // GEMM tile: 128 x 128
+constexpr int kKC = 64;                  // K columns a ring stage
+constexpr int kStages = 3;
+constexpr int kStageElems = 2 * kTile * kKC;   // an A slice, then a B slice
+constexpr int kBarBytes = 128;                 // the ring's mbarriers
+constexpr int kRowPieces = 4;    // 8-channel pieces a lane in LN: C <= 1024
+constexpr size_t kWgmmaSmem =
+    kBarBytes + sizeof(bf16) * (size_t)kStages * kStageElems;
 
-__host__ inline size_t mma_smem_bytes(int C) {
-  return sizeof(__nv_bfloat16) * ((size_t)kMRows * mma_row_stride(C) +
-                                  (size_t)kMNC * kMYS) +
-         sizeof(float) * ((size_t)kMRows * kMGS + (size_t)kMNC * kMGS +
-                          (size_t)kWarps * C);
-}
-
+// Blocks below `row_blocks`: xn = bf16(LN(x)) (or x itself without LN) in
+// tiled order, one block a group of 8 rows, one warp a row: lane l takes
+// the 8-channel pieces l, l + 32, ... (C % 8 == 0, C <= 1024: the row stays
+// in registers), statistics in f32 in a fixed order. The group's pieces
+// meet in shared memory (C * 16 bytes) in tiled order, so that they leave
+// as whole 128-byte core matrices. The other blocks: the call's weights into the forms the
+// phases read: wp = [W1 (2h x C) | W2 (C x h)] in tiled order, and dwp = the
+// conv taps and bias in f32, tap after tap: dwp[tap * h + n] = dwk[n, tap],
+// dwp[9 h + n] = dwb[n].
 __global__ void __launch_bounds__(kThreads)
-conv_glu_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ ln_w,
-                    const __nv_bfloat16* __restrict__ ln_b,
-                    const __nv_bfloat16* __restrict__ w1,
-                    const __nv_bfloat16* __restrict__ b1,
-                    const __nv_bfloat16* __restrict__ dwk,
-                    const __nv_bfloat16* __restrict__ dwb,
-                    const __nv_bfloat16* __restrict__ w2,
-                    const __nv_bfloat16* __restrict__ b2,
-                    __nv_bfloat16* __restrict__ out, int H, int W, int C,
-                    int hidden, int apply_ln) {
-  using bf16 = __nv_bfloat16;
+conv_glu_bf16_prepare_kernel(const bf16* __restrict__ x,
+                             const bf16* __restrict__ ln_w,
+                             const bf16* __restrict__ ln_b,
+                             const bf16* __restrict__ w1,
+                             const bf16* __restrict__ w2,
+                             const bf16* __restrict__ dwk,
+                             const bf16* __restrict__ dwb,
+                             bf16* __restrict__ xn, bf16* __restrict__ wp,
+                             float* __restrict__ dwp, int row_blocks, int M,
+                             int C, int hidden, int apply_ln) {
+  if ((int)blockIdx.x >= row_blocks) {
+    const int f = (blockIdx.x - row_blocks) * kThreads + threadIdx.x;
+    const int n1 = 2 * hidden * (C / 8), n2 = C * (hidden / 8);
+    if (f < n1) {                          // 8-element pieces of W1, of W2
+      const int r = f / (C / 8), c8 = f % (C / 8);
+      *reinterpret_cast<uint4*>(wp + dcae::tiled(r, 8 * c8, C)) =
+          *reinterpret_cast<const uint4*>(w1 + (size_t)r * C + 8 * c8);
+    } else if (f < n1 + n2) {
+      const int r = (f - n1) / (hidden / 8), c8 = (f - n1) % (hidden / 8);
+      *reinterpret_cast<uint4*>(wp + (size_t)2 * hidden * C +
+                                dcae::tiled(r, 8 * c8, hidden)) =
+          *reinterpret_cast<const uint4*>(w2 + (size_t)r * hidden + 8 * c8);
+    }
+    if (f < 9 * hidden)
+      dwp[f] = to_f<bf16>(dwk[(f % hidden) * 9 + f / hidden]);
+    else if (f < 10 * hidden)
+      dwp[f] = to_f<bf16>(dwb[f - 9 * hidden]);
+    return;
+  }
   extern __shared__ float smem[];
-  const int XS = mma_row_stride(C);
-  float* gs = smem;                          // (64, 65) gate chunk, haloed
-  float* vs = gs + kMRows * kMGS;            // (32, 65) value chunk
-  float* scratch = vs + kMNC * kMGS;         // (8, C) LN rows, per warp
-  bf16* xs = reinterpret_cast<bf16*>(scratch + kWarps * C);  // (64, C+8)
-  bf16* ys = xs + kMRows * XS;               // (32, 72) gated chunk
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;     // mma fragment coordinates
-  const int tiles_w = (W + kTW - 1) / kTW;
-  const int tiles_h = (H + kMTH - 1) / kMTH;
-  const int b = blockIdx.x / (tiles_h * tiles_w);
-  const int r0 = (blockIdx.x / tiles_w) % tiles_h * kMTH;
-  const int c0 = blockIdx.x % tiles_w * kTW;
-
-  auto halo_in_image = [&](int u) {
-    const int r = r0 - 1 + u / (kTW + 2), c = c0 - 1 + u % (kTW + 2);
-    return u < kMNH && r >= 0 && r < H && c >= 0 && c < W;
+  uint4* group = reinterpret_cast<uint4*>(smem);   // [c8][row of the group]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + warp;
+  auto piece = [&](const bf16* p, int c8, float v[8]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p + 8 * c8);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h2[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
   };
-  auto center = [&](int t) { return (t / kTW + 1) * (kTW + 2) + t % kTW + 1; };
-
-  // ---- LayerNorm of the haloed tile into bf16 rows (zeros off-image)
-  for (int u = warp; u < kMRows; u += kWarps) {
-    bf16* row = xs + u * XS;
-    if (halo_in_image(u)) {
-      const int r = r0 - 1 + u / (kTW + 2), c = c0 - 1 + u % (kTW + 2);
-      float* tmp = scratch + warp * C;
-      dcae::warp_layernorm_row<bf16>(x + (((size_t)b * H + r) * W + c) * C,
-                                     ln_w, ln_b, tmp, C, apply_ln != 0, lane);
-      __syncwarp();
-      for (int k = lane; k < C; k += 32) row[k] = __float2bfloat16(tmp[k]);
-      __syncwarp();
+  if (row < M) {
+    const bf16* src = x + (size_t)row * C;
+    if (!apply_ln) {
+      for (int c8 = lane; c8 < C / 8; c8 += 32)
+        group[c8 * 8 + warp] = *reinterpret_cast<const uint4*>(src + 8 * c8);
     } else {
-      for (int k = lane; k < C; k += 32) row[k] = __float2bfloat16(0.f);
+      float v[kRowPieces][8], s = 0.f;     // the row, in registers
+#pragma unroll
+      for (int j = 0; j < kRowPieces; ++j)
+        if (lane + 32 * j < C / 8) {
+          piece(src, lane + 32 * j, v[j]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) s += v[j][i];
+        }
+      const float mean = dcae::warp_sum(s) / C;
+      float q = 0.f;
+#pragma unroll
+      for (int j = 0; j < kRowPieces; ++j)
+        if (lane + 32 * j < C / 8) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            q += (v[j][i] - mean) * (v[j][i] - mean);
+        }
+      const float rstd = rsqrtf(dcae::warp_sum(q) / C + 1e-5f);
+#pragma unroll
+      for (int j = 0; j < kRowPieces; ++j)
+        if (lane + 32 * j < C / 8) {
+          const int c8 = lane + 32 * j;
+          float w[8], b[8];
+          piece(ln_w, c8, w);
+          piece(ln_b, c8, b);
+          uint4 packed;
+          __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            o[i] = __floats2bfloat162_rn(
+                (v[j][2 * i] - mean) * rstd * w[2 * i] + b[2 * i],
+                (v[j][2 * i + 1] - mean) * rstd * w[2 * i + 1] +
+                    b[2 * i + 1]);
+          group[c8 * 8 + warp] = packed;
+        }
     }
   }
+  __syncthreads();
+  // rows past M get what the shared memory held: the products never store
+  // them
+  bf16* dst = xn + dcae::tiled(blockIdx.x * 8, 0, C);
+  for (int i = threadIdx.x; i < C; i += kThreads)   // C / 8 pieces x 8 rows
+    *reinterpret_cast<uint4*>(dst + (size_t)(i >> 3) * (kTile / 8) * 64 +
+                              (i & 7) * 8) = group[i];
+}
 
-  float acc[2][kMMaxNT][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int i = 0; i < kMMaxNT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.f;
-  const int n_tiles = C / 8;
+// out[m - row_base, n] = sum_k A[m, k] Bw[n, k] + bias[n] for the 128 x 128
+// tile (tile0 + blockIdx.y, blockIdx.x) and m < row_end. A (rows x K) and
+// Bw (N x K) in tiled order, K % 64 == 0. Two warpgroups, 64 rows each, on
+// wgmma m64n128k16; thread 0 feeds a ring of kStages K-slices, one bulk copy
+// an operand and slice, refilling a stage as soon as both warpgroups are
+// done with it while the next slice multiplies. Rows past the operand's end
+// multiply what the tile's padding holds and are never stored. kF32Out: f32
+// [g | v] rows for the gate; else bf16 rows of the result.
+template <bool kF32Out>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_glu_bf16_gemm_kernel(const bf16* __restrict__ A,
+                          const bf16* __restrict__ Bw,
+                          const bf16* __restrict__ bias, void* __restrict__ out,
+                          int ldc, int tile0, int row_base, int row_end,
+                          int K) {
+  extern __shared__ float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  bf16* ring = reinterpret_cast<bf16*>(reinterpret_cast<char*>(smem) +
+                                       kBarBytes);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3, wg = warp >> 2;
+  const int mtile = tile0 + blockIdx.y;
+  const bf16* a_src = A + (size_t)mtile * kTile * K;
+  const bf16* b_src = Bw + (size_t)blockIdx.x * kTile * K;
+  const int nk = K / kKC;
+  constexpr uint32_t kSlice = kTile * kKC * sizeof(bf16);
+
+  auto load_slice = [&](int it) {      // K-slice `it` into stage it % kStages
+    uint64_t* bar = &full[it % kStages];
+    bf16* st = ring + (it % kStages) * kStageElems;
+    dcae::mbar_expect(bar, 2 * kSlice);
+    dcae::bulk_copy(st, a_src + (size_t)it * kTile * kKC, kSlice, bar);
+    dcae::bulk_copy(st + kTile * kKC, b_src + (size_t)it * kTile * kKC,
+                    kSlice, bar);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) dcae::mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int it = 0; it < kStages && it < nk; ++it) load_slice(it);
+  }
   __syncthreads();
 
-  for (int k0 = 0; k0 < hidden; k0 += kMChunk) {
-    // ---- fc1 for this chunk: warp w takes hidden channels k0+8w..+8 of
-    // the gate (4 m-tiles of haloed rows) and of the value (2 m-tiles of
-    // central rows)
-    {
-      float cg[4][4], cv[2][4];
+  float acc[64];
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  for (int it = 0; it < nk; ++it) {
+    const bf16* st = ring + (it % kStages) * kStageElems;
+    dcae::mbar_wait(&full[it % kStages], (it / kStages) & 1);
+    // this warpgroup's 64 rows are 8 row groups into the A slice
+    const uint64_t da =
+        dcae::wgmma_desc_strided(st + wg * 8 * 64, dcae::kTileLbo, 128);
+    const uint64_t db =
+        dcae::wgmma_desc_strided(st + kTile * kKC, dcae::kTileLbo, 128);
+    dcae::wgmma_fence();
+    // a k16 step is two K steps of the slice: 4 KB, 256 descriptor units
 #pragma unroll
-        for (int e = 0; e < 4; ++e) cg[m][e] = 0.f;
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) cv[m][e] = 0.f;
-      const int nc = k0 + 8 * warp;                       // first channel
-      const bf16* wg = w1 + (size_t)(nc + g) * C;
-      const bf16* wv = w1 + (size_t)(hidden + nc + g) * C;
-      const bf16* vrow_lo[2];
-      const bf16* vrow_hi[2];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        vrow_lo[m] = xs + center(m * 16 + g) * XS;
-        vrow_hi[m] = xs + center(m * 16 + g + 8) * XS;
-      }
-      for (int k = 0; k < C; k += 16) {
-        uint32_t bg[2], bv[2], a[4];
-        dcae::load_b(bg, wg, k, q);
-        dcae::load_b(bv, wv, k, q);
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          dcae::load_a(a, xs + (m * 16 + g) * XS, xs + (m * 16 + g + 8) * XS,
-                       k, q);
-          dcae::mma_bf16_16816(cg[m], a, bg);
-        }
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          dcae::load_a(a, vrow_lo[m], vrow_hi[m], k, q);
-          dcae::mma_bf16_16816(cv[m], a, bv);
-        }
-      }
-      const int col = 8 * warp + 2 * q;                   // within chunk
-      const float bg0 = to_f<bf16>(b1[k0 + col]);
-      const float bg1 = to_f<bf16>(b1[k0 + col + 1]);
-      const float bv0 = to_f<bf16>(b1[hidden + k0 + col]);
-      const float bv1 = to_f<bf16>(b1[hidden + k0 + col + 1]);
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int u = m * 16 + g + 8 * h;
-          const bool in = halo_in_image(u);
-          gs[u * kMGS + col] = in ? cg[m][2 * h] + bg0 : 0.f;
-          gs[u * kMGS + col + 1] = in ? cg[m][2 * h + 1] + bg1 : 0.f;
-        }
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int t = m * 16 + g + 8 * h;
-          vs[t * kMGS + col] = cv[m][2 * h] + bv0;
-          vs[t * kMGS + col + 1] = cv[m][2 * h + 1] + bv1;
-        }
+    for (int kk = 0; kk < kKC / 16; ++kk)
+      dcae::wgmma_m64n128k16(acc, da + kk * (2 * dcae::kTileLbo / 16),
+                             db + kk * (2 * dcae::kTileLbo / 16));
+    dcae::wgmma_commit();
+    dcae::wgmma_wait<1>();    // slice it - 1 is multiplied
+    if (it >= 1 && it - 1 + kStages < nk) {
+      __syncthreads();        // ... by both warpgroups: refill its stage
+      if (tid == 0) load_slice(it - 1 + kStages);
     }
-    __syncthreads();
-
-    // ---- depthwise 3x3 + GELU gate, rounded to bf16 for fc2
-    for (int e = tid; e < kMNC * kMChunk; e += kThreads) {
-      const int t = e / kMChunk, j = e % kMChunk, n = k0 + j;
-      const int tr = t / kTW, tc = t % kTW;
-      float s = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          s = fmaf(gs[((tr + dy) * (kTW + 2) + tc + dx) * kMGS + j],
-                   to_f<bf16>(dwk[n * 9 + dy * 3 + dx]), s);
-      s += to_f<bf16>(dwb[n]);
-      ys[t * kMYS + j] = __float2bfloat16(gelu(s) * vs[t * kMGS + j]);
-    }
-    __syncthreads();
-
-    // ---- fc2 partial: acc += ys (32 x 64) . W2[:, k0:k0+64]^T
-#pragma unroll
-    for (int kk = 0; kk < kMChunk; kk += 16) {
-      uint32_t a0[4], a1[4];
-      dcae::load_a(a0, ys + g * kMYS, ys + (g + 8) * kMYS, kk, q);
-      dcae::load_a(a1, ys + (16 + g) * kMYS, ys + (24 + g) * kMYS, kk, q);
-#pragma unroll
-      for (int i = 0; i < kMMaxNT; ++i) {
-        const int nt = warp + kWarps * i;
-        if (nt < n_tiles) {
-          uint32_t bw[2];
-          dcae::load_b(bw, w2 + (size_t)(nt * 8 + g) * hidden + k0, kk, q);
-          dcae::mma_bf16_16816(acc[0][i], a0, bw);
-          dcae::mma_bf16_16816(acc[1][i], a1, bw);
-        }
-      }
-    }
-    __syncthreads();
   }
+  dcae::wgmma_wait<0>();
 
-  // ---- out = acc + b2 for the tile's tokens inside the image
+  const int m = mtile * kTile + wg * 64 + (warp & 3) * 16 + g;
 #pragma unroll
-  for (int i = 0; i < kMMaxNT; ++i) {
-    const int nt = warp + kWarps * i;
-    if (nt >= n_tiles) continue;
-    const int n = nt * 8 + 2 * q;
-    const float bo0 = to_f<bf16>(b2[n]), bo1 = to_f<bf16>(b2[n + 1]);
+  for (int j = 0; j < 16; ++j) {
+    const int n = blockIdx.x * kTile + 8 * j + 2 * q;
+    const float b0 = to_f<bf16>(bias[n]), b1 = to_f<bf16>(bias[n + 1]);
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = m * 16 + g + 8 * h;
-        const int r = r0 + t / kTW, c = c0 + t % kTW;
-        if (r < H && c < W)
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + (((size_t)b * H + r) * W + c) * C + n) =
-              __floats2bfloat162_rn(acc[m][i][2 * h] + bo0,
-                                    acc[m][i][2 * h + 1] + bo1);
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int mm = m + 8 * hh;
+      if (mm >= row_end) continue;
+      const size_t off = (size_t)(mm - row_base) * ldc + n;
+      const float o0 = acc[4 * j + 2 * hh] + b0;
+      const float o1 = acc[4 * j + 2 * hh + 1] + b1;
+      if constexpr (kF32Out)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + off) =
+            make_float2(o0, o1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
+            __floats2bfloat162_rn(o0, o1);
+    }
   }
 }
 
-int launch_mma(const void* x, const void* ln_w, const void* ln_b,
-               const void* w1, const void* b1, const void* dwk,
-               const void* dwb, const void* w2, const void* b2, void* out,
-               int B, int H, int W, int C, int hidden, int apply_ln,
-               cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  const size_t smem = mma_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_glu_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+constexpr int kGateCols = 16;     // image columns a block
+constexpr int kGateQuads = 16;    // 4-channel groups a block: 64 channels
+constexpr int kGateRows = 8;      // rows a block
+constexpr int kGateHaloCols = kGateCols + 2;
+constexpr int kGateTile = (kGateRows + 2) * kGateHaloCols * kGateQuads;
+constexpr size_t kGateSmem = 2 * sizeof(float4) * kGateTile;   // two buffers
+
+__device__ __forceinline__ float4 fma4(float4 a, float4 w, float4 s) {
+  return make_float4(fmaf(a.x, w.x, s.x), fmaf(a.y, w.y, s.y),
+                     fmaf(a.z, w.z, s.z), fmaf(a.w, w.w, s.w));
+}
+
+// GELU with the erf of Abramowitz and Stegun 7.1.26 (|error| <= 1.5e-7, the
+// TPU kernel's own) on the fast reciprocal and exponential: branch-free, a
+// third of erff's instructions (the gate is bound by instructions), and far
+// below the bf16 rounding of y that follows.
+__device__ __forceinline__ float gelu_as(float v) {
+  const float z = fabsf(v) * 0.70710678118654752f;
+  const float t = __fdividef(1.f, fmaf(0.3275911f, z, 1.f));
+  float poly = fmaf(1.061405429f, t, -1.453152027f);
+  poly = fmaf(poly, t, 1.421413741f);
+  poly = fmaf(poly, t, -0.284496736f);
+  poly = fmaf(poly, t, 0.254829592f);
+  const float erf_abs = 1.f - poly * t * __expf(-z * z);
+  return 0.5f * v * (1.f + copysignf(erf_abs, v));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// y = bf16(GELU(dwconv3x3(g) + dwb) * v) for the rows [r0, r1) of the
+// B * H rows of the call (each W tokens), into tiled order for fc2. gv holds
+// [g | v] in f32 of the tokens from `tok_base` on, at least the rows r0 - 1
+// .. r1 that lie in the same image as a row of the band. The work is cut
+// into tiles of 8 rows x 16 columns x 64 channels, which persistent blocks
+// walk: a tile's g with a one-token halo comes to shared memory by cp.async
+// (zeros for what lies outside the call or is not needed) while the tile
+// before it is computed, since the sums are bound by instructions and the
+// loads by latency. A thread owns one column and four channels and walks
+// down the rows: each row of g is read once (its own and the two
+// neighbouring columns), turned into the three partial sums it gives the
+// rows above, at and below it, and row r is finished as ((p0(r-1) + p1(r))
+// + p2(r+1)) + dwb. A neighbour in another image gives nothing: zero
+// padding in g-space.
+__global__ void __launch_bounds__(kThreads, 2)
+conv_glu_bf16_gate_kernel(const float* __restrict__ gv,
+                          const float* __restrict__ dwp, bf16* __restrict__ y,
+                          int tok_base, int r0, int r1, int H, int W,
+                          int hidden) {
+  extern __shared__ float4 gs[];   // 2 x [halo row][halo column][quad]
+  const int chunks = hidden / (4 * kGateQuads);
+  const int across = (W + kGateCols - 1) / kGateCols * chunks;
+  const int tiles = (r1 - r0 + kGateRows - 1) / kGateRows * across;
+  const size_t ld = 2 * (size_t)hidden;
+  auto ld4 = [](const float* p) { return *reinterpret_cast<const float4*>(p); };
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int cx = threadIdx.x / kGateQuads, quad = threadIdx.x % kGateQuads;
+
+  struct Tile { int s0, s1, c0, ch0; };
+  auto tile_at = [&](int t) -> Tile {
+    const int s0 = r0 + t / across * kGateRows;
+    return {s0, min(s0 + kGateRows, r1), t % across / chunks * kGateCols,
+            t % chunks * (4 * kGateQuads)};
+  };
+  // the tile's g and halo into buffer `buf`. The row above the first is read
+  // only inside its image, as the row below the last: the scratch holds no
+  // other
+  auto fetch = [&](const Tile& t, int buf) {
+    const int first = t.s0 % H ? t.s0 - 1 : t.s0;
+    const int last = t.s1 % H ? t.s1 + 1 : t.s1;
+    for (int i = threadIdx.x; i < kGateTile; i += kThreads) {
+      const int u = i / kGateQuads;
+      const int r = t.s0 - 1 + u / kGateHaloCols;
+      const int c = t.c0 - 1 + u % kGateHaloCols;
+      const bool in = r >= first && r < last && c >= 0 && c < W;
+      dcae::cp_async16_zfill(
+          gs + buf * kGateTile + i,
+          gv + (in ? ((size_t)r * W + c - tok_base) * ld + t.ch0 +
+                         4 * (i % kGateQuads)
+                   : 0),
+          in);
+    }
+    dcae::cp_async_commit();
+  };
+
+  if ((int)blockIdx.x < tiles) fetch(tile_at(blockIdx.x), 0);
+  int n = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++n) {
+    const Tile tl = tile_at(t);
+    const int c = tl.c0 + cx, ch = tl.ch0 + 4 * quad;
+    const bool mine = c < W;
+    const bool more = t + (int)gridDim.x < tiles;
+    if (more) fetch(tile_at(t + gridDim.x), (n + 1) & 1);
+    float4 w[9], bias = zero, v[kGateRows];
+    if (mine) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) w[k] = ld4(dwp + k * hidden + ch);
+      bias = ld4(dwp + 9 * hidden + ch);
+#pragma unroll
+      for (int i = 0; i < kGateRows; ++i)
+        if (tl.s0 + i < tl.s1)
+          v[i] = ld4(gv + ((size_t)(tl.s0 + i) * W + c - tok_base) * ld +
+                     hidden + ch);
+    }
+    if (more)
+      dcae::cp_async_wait<1>();
+    else
+      dcae::cp_async_wait<0>();
+    __syncthreads();                 // this tile's g has landed
+    if (mine) {
+      const float4* g0 = gs + (n & 1) * kGateTile + cx * kGateQuads + quad;
+      float4 a0 = zero, a1 = zero;   // rows rp - 1 and rp, so far
+      int rin = (tl.s0 + H - 1) % H;   // row s0 - 1 in its image
+#pragma unroll
+      for (int i = -1; i <= kGateRows; ++i) {
+        const int rp = tl.s0 + i;
+        if (rp <= tl.s1) {
+          // the row gives p0 to the row below and p2 to the row above
+          // unless the image ends between them
+          const bool below = rp >= 0 && rin != H - 1;
+          const bool above = rp >= 0 && rin != 0;
+          const float4* g = g0 + (i + 1) * kGateHaloCols * kGateQuads;
+          const float4 gl = g[0], gc = g[kGateQuads], gr = g[2 * kGateQuads];
+          const float4 p0 =
+              fma4(gr, w[2], fma4(gc, w[1], fma4(gl, w[0], zero)));
+          const float4 p1 =
+              fma4(gr, w[5], fma4(gc, w[4], fma4(gl, w[3], zero)));
+          const float4 p2 =
+              fma4(gr, w[8], fma4(gc, w[7], fma4(gl, w[6], zero)));
+          if (i >= 1) {
+            const float4 s = add4(add4(a0, above ? p2 : zero), bias);
+            const float4 vv = v[i >= 1 ? i - 1 : 0];
+            uint2 packed;
+            __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+            o[0] = __floats2bfloat162_rn(gelu_as(s.x) * vv.x,
+                                         gelu_as(s.y) * vv.y);
+            o[1] = __floats2bfloat162_rn(gelu_as(s.z) * vv.z,
+                                         gelu_as(s.w) * vv.w);
+            *reinterpret_cast<uint2*>(
+                y + dcae::tiled((rp - 1) * W + c, ch, hidden)) = packed;
+          }
+          a0 = add4(a1, p1);
+          a1 = below ? p0 : zero;
+          rin = rin == H - 1 ? 0 : rin + 1;
+        }
+      }
+    }
+    __syncthreads();                 // the buffer may be refilled
+  }
+}
+
+// One band: the rows [r0, r1) of the call's B * H rows and the rows
+// [lo, hi) whose g their conv reads.
+struct Band { int r0, r1, lo, hi; };
+
+__host__ inline int tiles_of(long long tokens) {
+  return (int)((tokens + kTile - 1) / kTile);
+}
+
+// The byte offsets of the bf16 path's scratch: [g | v] of a band's tiles
+// (f32), the conv taps (f32), then xn, y (tile-padded rows) and the packed
+// weights (bf16).
+struct Bf16Scratch {
+  size_t gv, dwp, xn, y, wp, end;
+  Bf16Scratch(long long M, int C, int hidden, int band_tiles) {
+    const size_t rows = (size_t)tiles_of(M) * kTile;
+    gv = 0;
+    dwp = gv + sizeof(float) * (size_t)band_tiles * kTile * 2 * hidden;
+    xn = dwp + sizeof(float) * 10 * (size_t)hidden;
+    y = xn + sizeof(bf16) * rows * C;
+    wp = y + sizeof(bf16) * rows * hidden;
+    end = wp + sizeof(bf16) * 3 * (size_t)hidden * C;
+  }
+};
+
+// Tiles of fc1 that cover the tokens of rows [lo, hi): at most this many
+// for a band of `halo_rows` rows, wherever it starts.
+__host__ inline int band_tiles_bound(int halo_rows, int W) {
+  return tiles_of((long long)halo_rows * W) + 1;
+}
+
+template <bool kF32Out>
+cudaError_t launch_bf16_gemm(const bf16* A, const bf16* Bw, const bf16* bias,
+                             void* out, int ldc, int tile0, int tiles, int N,
+                             int row_base, int row_end, int K,
+                             cudaStream_t stream) {
+  conv_glu_bf16_gemm_kernel<kF32Out>
+      <<<dim3(N / kTile, tiles), kThreads, kWgmmaSmem, stream>>>(
+          A, Bw, bias, out, ldc, tile0, row_base, row_end, K);
+  return cudaGetLastError();
+}
+
+// The current device's SM count, after the bf16 kernels were allowed their
+// shared memory there: asked of the runtime once a device, since a call is
+// short enough for these host calls to show.
+cudaError_t bf16_device(int* sms) {
+  constexpr int kMaxDevices = 64;
+  static int known[kMaxDevices];           // SM count, 0 = not asked yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && known[dev]) {
+    *sms = known[dev];
+    return cudaSuccess;
+  }
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           conv_glu_bf16_gemm_kernel<true>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWgmmaSmem)) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           conv_glu_bf16_gemm_kernel<false>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWgmmaSmem)) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           conv_glu_bf16_gate_kernel,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGateSmem)) !=
+          cudaSuccess)
+    return err;
+  if (dev < kMaxDevices) known[dev] = *sms;
+  return cudaSuccess;
+}
+
+int launch_bf16(const bf16* x, const bf16* ln_w, const bf16* ln_b,
+                const bf16* w1, const bf16* b1, const bf16* dwk,
+                const bf16* dwb, const bf16* w2, const bf16* b2, bf16* out,
+                char* scratch, const Band* bands, int n_bands, int band_rows,
+                int B, int H, int W, int C, int hidden, int apply_ln,
+                cudaStream_t stream) {
+  const int M = B * H * W;
+  const Bf16Scratch at(M, C, hidden, band_tiles_bound(band_rows, W));
+  float* gv = reinterpret_cast<float*>(scratch + at.gv);
+  float* dwp = reinterpret_cast<float*>(scratch + at.dwp);
+  bf16* xn = reinterpret_cast<bf16*>(scratch + at.xn);
+  bf16* y = reinterpret_cast<bf16*>(scratch + at.y);
+  bf16* wp = reinterpret_cast<bf16*>(scratch + at.wp);
+  int sms = 0;
+  cudaError_t err = bf16_device(&sms);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = B * ((H + kMTH - 1) / kMTH) * ((W + kTW - 1) / kTW);
-  conv_glu_mma_kernel<<<tiles, kThreads, smem, stream>>>(
-      (const bf16*)x, (const bf16*)ln_w, (const bf16*)ln_b, (const bf16*)w1,
-      (const bf16*)b1, (const bf16*)dwk, (const bf16*)dwb, (const bf16*)w2,
-      (const bf16*)b2, (bf16*)out, H, W, C, hidden, apply_ln);
-  return (int)cudaGetLastError();
+  const int row_blocks = (M + 7) / 8;
+  const int pieces = max(3 * hidden * (C / 8), 10 * hidden);
+  conv_glu_bf16_prepare_kernel<<<row_blocks +
+                                     (pieces + kThreads - 1) / kThreads,
+                                 kThreads, C * sizeof(uint4), stream>>>(
+      x, ln_w, ln_b, w1, w2, dwk, dwb, xn, wp, dwp, row_blocks, M, C, hidden,
+      apply_ln);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  for (int i = 0; i < n_bands; ++i) {
+    const Band& bd = bands[i];
+    // fc1 on the tiles that hold the band's rows and their halo
+    const int tile0 = (int)((long long)bd.lo * W / kTile);
+    const int tiles = tiles_of((long long)bd.hi * W) - tile0;
+    err = launch_bf16_gemm<true>(xn, wp, b1, gv, 2 * hidden, tile0, tiles,
+                                 2 * hidden, tile0 * kTile,
+                                 min(M, (tile0 + tiles) * kTile), C, stream);
+    if (err != cudaSuccess) return (int)err;
+    const int gate_tiles = (W + kGateCols - 1) / kGateCols *
+                           (hidden / (4 * kGateQuads)) *
+                           ((bd.r1 - bd.r0 + kGateRows - 1) / kGateRows);
+    conv_glu_bf16_gate_kernel<<<min(gate_tiles, 2 * sms), kThreads, kGateSmem,
+                                stream>>>(gv, dwp, y, tile0 * kTile, bd.r0,
+                                          bd.r1, H, W, hidden);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  // fc2 once, on every row: y of all bands (bf16) stays in L2
+  return (int)launch_bf16_gemm<false>(y, wp + (size_t)2 * hidden * C, b2, out,
+                                      C, 0, tiles_of(M), C, 0, M, hidden,
+                                      stream);
 }
 
 template <int BM, int BN>
@@ -540,35 +820,49 @@ int launch_f32(const float* x, const float* ln_w, const float* ln_b,
 
 extern "C" {
 
-// Shared memory the kernel asks for at width C (bf16: tensor-core tile
-// kernel; f32: the larger of the two GEMMs).
+// Shared memory the kernel asks for at width C (bf16: the wgmma ring,
+// whatever C; f32: the larger of the two GEMMs).
 long long dcae_conv_glu_smem(int C, int bf16) {
-  return (long long)(bf16 ? mma_smem_bytes(C)
-                          : gemm_smem_bytes<kFc1BM, kFc1BN>());
+  (void)C;
+  return (long long)(bf16 ? kWgmmaSmem : gemm_smem_bytes<kFc1BM, kFc1BN>());
 }
 
-// f32 scratch the kernel needs, in floats (bf16 needs none): LN(x) and
-// [g | v] of every token.
+// Bytes of scratch a call needs. f32: LN(x) and [g | v] of every token.
+// bf16: [g | v] of the largest band (`band_rows` rows with their halo),
+// the conv taps, xn, y and the packed weights.
 long long dcae_conv_glu_scratch(int B, int H, int W, int C, int hidden,
-                                int bf16) {
-  return bf16 ? 0 : (long long)B * H * W * (C + 2 * (long long)hidden);
+                                int bf16, int band_rows) {
+  const long long M = (long long)B * H * W;
+  if (!bf16) return (long long)sizeof(float) * M * (C + 2 * (long long)hidden);
+  return (long long)Bf16Scratch(M, C, hidden,
+                                band_tiles_bound(band_rows, W)).end;
 }
 
 // x, out: (B, H, W, C) contiguous; weights in torch layout: w1 (2h, C)
 // packed [gate | value], b1 (2h), dwk (h, 1, 3, 3), dwb (h), w2 (C, h),
 // b2 (C); ln_w, ln_b (C), read only when apply_ln. All of one dtype: f32
-// (bf16 == 0: 3xTF32 GEMM phases, C % 64 == 0, h % 64 == 0, `scratch` of
-// dcae_conv_glu_scratch floats) or bf16 (bf16 == 1: tensor-core tile
-// kernel, C % 16 == 0, C <= 512, h % 64 == 0, `scratch` unused). Returns
-// the CUDA error of the launches.
+// (bf16 == 0: 3xTF32 GEMM phases, C % 64 == 0, h % 64 == 0; `bands` unused)
+// or bf16 (bf16 == 1: wgmma GEMM phases, C % 128 == 0, C <= 1024,
+// h % 64 == 0, walked
+// over the `n_bands` bands of `bands`, host memory, four ints each: rows
+// [r0, r1) of the B * H rows and [lo, hi), the rows whose g they read; the
+// bands cover every row once, in order, none with more than `band_rows`
+// rows in [lo, hi)). `scratch`: dcae_conv_glu_scratch bytes, 256-byte
+// aligned. Returns the CUDA error of the launches.
 int dcae_conv_glu(const void* x, const void* ln_w, const void* ln_b,
                   const void* w1, const void* b1, const void* dwk,
                   const void* dwb, const void* w2, const void* b2, void* out,
-                  void* scratch, int B, int H, int W, int C, int hidden,
-                  int apply_ln, int bf16, void* stream) {
-  if (bf16)
-    return launch_mma(x, ln_w, ln_b, w1, b1, dwk, dwb, w2, b2, out, B, H, W,
-                      C, hidden, apply_ln, (cudaStream_t)stream);
+                  void* scratch, const void* bands, int B, int H, int W,
+                  int C, int hidden, int apply_ln, int bf16, int n_bands,
+                  int band_rows, void* stream) {
+  if (bf16) {
+    using H16 = const __nv_bfloat16*;
+    return launch_bf16((H16)x, (H16)ln_w, (H16)ln_b, (H16)w1, (H16)b1,
+                       (H16)dwk, (H16)dwb, (H16)w2, (H16)b2,
+                       (__nv_bfloat16*)out, (char*)scratch,
+                       (const Band*)bands, n_bands, band_rows, B, H, W, C,
+                       hidden, apply_ln, (cudaStream_t)stream);
+  }
   using F = const float*;
   return launch_f32((F)x, (F)ln_w, (F)ln_b, (F)w1, (F)b1, (F)dwk, (F)dwb,
                     (F)w2, (F)b2, (float*)out, (float*)scratch, B, H, W, C,

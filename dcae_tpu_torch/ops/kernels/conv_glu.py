@@ -2,7 +2,8 @@
 fc2(GELU(dwconv3x3(fc1_g(LN x)) + dwb) * fc1_v(LN x)).
 
 Counterpart of the TPU kernel `dcae_tpu/ops/pallas/conv_glu.py::
-fused_conv_glu`. `conv_glu` launches the CUDA kernel (csrc/conv_glu.cu) for
+fused_conv_glu`. `conv_glu` launches the CUDA kernels (csrc/conv_glu.cu: LN,
+fc1, gate, fc2 as phases; bf16 calls band by band, see `band_plan`) for
 CUDA tensors and runs `conv_glu_ref`, the plain PyTorch statement of the
 same math, for CPU tensors.
 
@@ -12,6 +13,7 @@ dw_w (h, 1, 3, 3), w2 (C, h) (fc2).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -19,16 +21,57 @@ import torch.nn.functional as F
 
 from dcae_tpu_torch.ops.kernels import _build
 
+
 def supported(C: int, hidden: int, dtype: torch.dtype) -> bool:
     """Where the model routes a GLU through this function: the widths the
     TPU package gave its kernel (multiples of 128: the stage-3 GLUs at
-    C=256 and the dictionary-attention GLU at C=640) that the CUDA kernel
-    of this dtype takes (its register-held accumulator bounds C). The
-    stage-1/2 GLUs (C=96/144) stay on the plain module, as they stay on
-    XLA there. The rule is the same on the CPU, so both devices run the
-    same call graph."""
+    C=256 and the dictionary-attention GLU at C=640), in bf16 up to C=512,
+    the range held against the plain version on the card. The stage-1/2
+    GLUs (C=96/144) stay on the plain module, as they stay on XLA there.
+    Every width routed here is one `kernel_takes`. The rule is the same on
+    the CPU, so both devices run the same call graph."""
     limit = 512 if dtype == torch.bfloat16 else 1024
     return C % 128 == 0 and hidden % 128 == 0 and C <= limit
+
+
+def kernel_takes(C: int, hidden: int, dtype: torch.dtype) -> bool:
+    """The widths the CUDA kernels of this dtype take. bf16: wgmma GEMMs on
+    128-wide column tiles (fc2's columns are C) and 64-deep K slices (C for
+    fc1, h for fc2), the gate 64 channels a block, an LN row in a warp's
+    registers; f32: fc1 columns in 128-wide tiles, fc2 columns in 64-wide
+    ones, 32-deep K slices."""
+    if dtype == torch.bfloat16:
+        return C % 128 == 0 and C <= 1024 and hidden % 64 == 0
+    return dtype == torch.float32 and C % 64 == 0 and hidden % 64 == 0
+
+
+# [g | v] in f32 of one band of the bf16 call: no more than the H100's L2
+# (50 MB) and the whole of a call at the path's shape, (2, 64, 96) at h = 512.
+# Smaller bands keep more of the scratch in L2 but make every fc1 and gate
+# launch a partial wave of short blocks: a quarter of this measured a
+# quarter slower on the card.
+BAND_BYTES = 48 << 20
+
+
+def band_plan(B: int, H: int, W: int, hidden: int,
+              band_bytes: int | None = None) -> list:
+    """The bands a bf16 call is walked in: [(r0, r1, lo, hi), ...] over the
+    B * H rows of the call (row b * H + r is row r of image b). Rows
+    [r0, r1) are the band's own; [lo, hi) adds the row above and the row
+    below whose g the 3x3 conv reads, where that row lies in the same
+    image. The bands cover every row once, in order, with rows of equal
+    count (the last may be shorter), each with at most `band_bytes` of
+    [g | v] in f32 (BAND_BYTES by default), and at least one row."""
+    rows = B * H
+    band_bytes = BAND_BYTES if band_bytes is None else band_bytes
+    per = max(1, band_bytes // (W * 2 * hidden * 4))
+    per = -(-rows // -(-rows // per))        # equal bands, no more of them
+    plan = []
+    for r0 in range(0, rows, per):
+        r1 = min(r0 + per, rows)
+        plan.append((r0, r1, r0 - (1 if r0 % H else 0),
+                     r1 + (1 if r1 % H else 0)))
+    return plan
 
 
 def conv_glu_ref(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
@@ -52,19 +95,30 @@ def conv_glu_ref(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
     return (torch.matmul(y, f(w2).t()) + f(b2)).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _bands_arg(B: int, H: int, W: int, hidden: int, band_bytes: int):
+    """The plan as the C entry takes it: (int array of 4 ints a band, number
+    of bands, most rows any band's [lo, hi) holds)."""
+    plan = band_plan(B, H, W, hidden, band_bytes)
+    flat = [v for band in plan for v in band]
+    return ((ctypes.c_int * len(flat))(*flat), len(plan),
+            max(hi - lo for _, _, lo, hi in plan))
+
+
 @functools.cache
 def _entry():
     lib = _build.load_kernel("conv_glu")
-    return (_build.bind(lib, "dcae_conv_glu", 11, 7),
+    return (_build.bind(lib, "dcae_conv_glu", 12, 9),
             _build.bind_query(lib, "dcae_conv_glu_smem", 2),
-            _build.bind_query(lib, "dcae_conv_glu_scratch", 6))
+            _build.bind_query(lib, "dcae_conv_glu_scratch", 7))
 
 
 def conv_glu(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
              apply_ln: bool = True) -> torch.Tensor:
     """x: (B, H, W, C) -> (B, H, W, C) in x's dtype. CPU tensors run
-    conv_glu_ref; CUDA tensors launch the kernel or raise. ln_w/ln_b are
-    read only when apply_ln."""
+    conv_glu_ref; CUDA tensors launch the kernels or raise. ln_w/ln_b are
+    read only when apply_ln. One call counts as one launch, whatever the
+    number of phase kernels and bands."""
     if x.device.type == "cpu":
         return conv_glu_ref(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2,
                             apply_ln=apply_ln)
@@ -78,29 +132,27 @@ def conv_glu(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
     params = (ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2)
     _build.kernel_operands("conv_glu", x, params)
     bf16 = x.dtype == torch.bfloat16
-    # bf16 (a tile walk) takes h in chunks of 64 and C in 16-deep steps,
-    # its fc2 accumulator in registers bounding C; f32 (GEMM phases) takes
-    # fc1 columns in 128-wide tiles and fc2 columns in 64-wide ones
-    widths_ok = h % 64 == 0 and ((C % 16 == 0 and C <= 512) if bf16 else
-                                 C % 64 == 0)
-    if not widths_ok or tuple(w1.shape) != (2 * h, C) or \
+    if not kernel_takes(C, h, x.dtype) or tuple(w1.shape) != (2 * h, C) or \
             tuple(w2.shape) != (C, h) or tuple(dw_w.shape) != (h, 1, 3, 3):
         raise ValueError(f"conv_glu: unsupported widths C={C}, h={h} for "
                          f"{x.dtype}")
+    if x.numel() == 0:
+        raise ValueError("conv_glu: empty input")
     fn, smem, scratch_len = _entry()
     if smem(C, int(bf16)) > _build.SMEM_LIMIT:
         raise ValueError(f"conv_glu: C={C} needs more shared memory than a "
                          "block has")
+    # bf16 walks the call in bands over one reused [g | v] scratch
+    bands, n_bands, band_rows = (_bands_arg(B, H, W, h, BAND_BYTES) if bf16
+                                 else (None, 0, 0))
     out = torch.empty_like(x)
-    n_scratch = scratch_len(B, H, W, C, h, int(bf16))
-    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=x.device)
-               if n_scratch else None)
+    scratch = torch.empty(scratch_len(B, H, W, C, h, int(bf16), band_rows),
+                          dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), *(p.data_ptr() for p in params),
-                out.data_ptr(), None if scratch is None else
-                scratch.data_ptr(), B, H, W, C, h, int(apply_ln), int(bf16),
-                stream)
+                out.data_ptr(), scratch.data_ptr(), bands, B, H, W, C, h,
+                int(apply_ln), int(bf16), n_bands, band_rows, stream)
     _build.check(rc, "conv_glu")
     conv_glu.launches += 1
     return out

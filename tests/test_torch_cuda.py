@@ -193,3 +193,66 @@ def test_conv_glu_f32_tiles(card, shape, C, h, apply_ln):
     assert _rel_err(got, want) <= TOL["float32"]
     for _ in range(3):
         assert torch.equal(got, cg.conv_glu(x, *args, apply_ln=apply_ln))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apply_ln", [True, False])
+@pytest.mark.parametrize("C,h", [(256, 512), (128, 256)])
+@pytest.mark.parametrize("shape", [(1, 7, 9), (2, 12, 23), (2, 10, 21),
+                                   (2, 64, 96)])
+def test_conv_glu_bf16_phases(card, shape, C, h, apply_ln):
+    """The bf16 wgmma phases at token counts below one 128-row tile (63),
+    not a multiple of it (552, 420) and at the path's shape (12,288), with
+    and without the LN; 1e-2 of max against the
+    plain version (the largest error measured is 4.7e-3); bitwise
+    repeatable; one launch counted a call."""
+    rng = np.random.default_rng(19)
+    dt = torch.bfloat16
+    x = torch.from_numpy(rng.normal(size=(*shape, C)).astype(
+        np.float32)).cuda().to(dt)
+    args = _args(rng, dt, [
+        ((C,), lambda r, s: 1 + 0.1 * r.normal(size=s)),
+        ((C,), lambda r, s: 0.1 * r.normal(size=s)),
+        ((2 * h, C), lambda r, s: _uniform(r, s, C ** -0.5)),
+        ((2 * h,), lambda r, s: _uniform(r, s, C ** -0.5)),
+        ((h, 1, 3, 3), lambda r, s: _uniform(r, s, 1 / 3)),
+        ((h,), lambda r, s: _uniform(r, s, 1 / 3)),
+        ((C, h), lambda r, s: _uniform(r, s, h ** -0.5)),
+        ((C,), lambda r, s: _uniform(r, s, h ** -0.5)),
+    ])
+    before = cg.conv_glu.launches
+    got = cg.conv_glu(x, *args, apply_ln=apply_ln)
+    want = cg.conv_glu_ref(x, *args, apply_ln=apply_ln)
+    assert cg.conv_glu.launches == before + 1
+    assert got.dtype == dt and bool(torch.isfinite(got.float()).all())
+    assert _rel_err(got, want) <= 1e-2
+    for _ in range(3):
+        assert torch.equal(got, cg.conv_glu(x, *args, apply_ln=apply_ln))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band_rows", [1, 5, 1000])
+def test_conv_glu_bf16_bands(card, band_rows, monkeypatch):
+    """Bands of one row, bands that cross the border between the images
+    (H = 12, five rows a band) and one band for the whole call give the
+    same bits: the walk changes where [g | v] waits, not what is summed."""
+    rng = np.random.default_rng(20)
+    C, h, shape = 128, 256, (2, 12, 23)
+    dt = torch.bfloat16
+    x = torch.from_numpy(rng.normal(size=(*shape, C)).astype(
+        np.float32)).cuda().to(dt)
+    args = _args(rng, dt, [
+        ((C,), lambda r, s: 1 + 0.1 * r.normal(size=s)),
+        ((C,), lambda r, s: 0.1 * r.normal(size=s)),
+        ((2 * h, C), lambda r, s: _uniform(r, s, C ** -0.5)),
+        ((2 * h,), lambda r, s: _uniform(r, s, C ** -0.5)),
+        ((h, 1, 3, 3), lambda r, s: _uniform(r, s, 1 / 3)),
+        ((h,), lambda r, s: _uniform(r, s, 1 / 3)),
+        ((C, h), lambda r, s: _uniform(r, s, h ** -0.5)),
+        ((C,), lambda r, s: _uniform(r, s, h ** -0.5)),
+    ])
+    default = cg.conv_glu(x, *args)
+    monkeypatch.setattr(cg, "BAND_BYTES", band_rows * shape[2] * 2 * h * 4)
+    got = cg.conv_glu(x, *args)
+    assert _rel_err(got, cg.conv_glu_ref(x, *args)) <= 1e-2
+    assert torch.equal(got, default)
