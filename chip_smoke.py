@@ -11,7 +11,12 @@ Phases, in order:
              the main path's shapes (batch 2 of 768x512), with times, the
              least time the card could take (bound) and, for wmsa_block and
              wmsa_attention, an SDPA call as yardstick; conv_glu must be
-             bitwise repeatable in both dtypes.
+             bitwise repeatable in both dtypes. The two lane-coder kernels
+             (rans_lanes_decode / rans_lanes_encode) code 5 chained slices
+             of 196,608 symbols on 512 lanes under the codec's Gaussian
+             bank and must equal their plain versions AND the C++ host
+             coder exactly; a flipped word or a bumped state must give
+             ok = false. Their yardstick is the host coder's time.
   reference  the full-width f32 model on the card against the same weights
              on the CPU (plain versions), on a 128x128 image.
   slice      the full-size bf16 codec (seeded random weights) on 2
@@ -24,13 +29,25 @@ Phases, in order:
                         ones and decode exactly; compress_with_indexes then
                         decompress(indexes=...) must give the per-slice
                         decoder's x_hat bitwise;
+             interleaved  the device-coding profile on the same codec:
+                        compress_device -> decompress_interleaved; ok, x_hat
+                        bitwise equal to the staged part's, streams equal to
+                        compress_interleaved's (host coder), a corrupt
+                        stream found, both device parts free of host waits
+                        (torch.cuda.set_sync_debug_mode("error")), a DTI2
+                        file round trip, the serving loop over 3 batches.
+                        The part prints each slice's count of out-of-table
+                        symbols and opens codec.patch_cap only where one
+                        exceeds it (seed 0's random weights stay far below
+                        the default 512).
              attention-only  DCAEConfig(fused_attention_block=False): exact
                         decode, bpp within 1% and PSNR within 0.1 dB of the
                         staged part.
              Every path runs with the launch counters set to 0 just before
              it and read just after; each must show its kernels.
   profile    (only with --phase profile) device time of one slice run by
-             kernel, from torch.profiler.
+             kernel, from torch.profiler: staged, shipped-index and
+             interleaved pairs.
   bands      (only with --phase bands) the bf16 conv_glu call at the path's
              shape walked in bands of 12, 24 and 48 MiB of [g | v], and
              what the host spends to enqueue one call.
@@ -75,6 +92,9 @@ CONV_GLU_CASES = [
     ("DCA GLU", 32, 48, 640, 1280, "float32", 10),
 ]
 BATCH = 2
+# the interleaved profile at batch 2 of 768x512: symbols a slice
+# (2 x 48 x 32 x 64), slices, and the lanes _auto_lanes picks for them
+RANS_N, RANS_SLICES, RANS_LANES = 196_608, 5, 512
 
 
 def fail(msg: str) -> None:
@@ -282,7 +302,192 @@ def kernel_phase(gen) -> dict:
            if not r["ok"]]
     if bad:
         fail(f"kernel checks: {bad}")
+    results.update(rans_phase())
     return results
+
+
+def draw_symbols(g, n: int, S: int, rng) -> tuple:
+    """(symbols, indexes), (S, n) int32 each: a uniform CDF row per symbol
+    and the symbol drawn from that row's own quantized pmf (the escape
+    bucket's mass goes to the last in-range bucket)."""
+    rows = g.quantized_cdf.shape[0]
+    idx = rng.integers(0, rows, (S, n)).astype(np.int32)
+    slot = rng.integers(0, 1 << 16, (S, n))
+    pos = np.empty((S, n), np.int64)
+    for r in range(rows):
+        m = idx == r
+        cdf = g.quantized_cdf[r, :g.cdf_length[r]]
+        pos[m] = np.searchsorted(cdf, slot[m], side="right") - 1
+    pos = np.minimum(pos, g.cdf_length[idx] - 3)
+    return (pos + g.offset[idx]).astype(np.int32), idx
+
+
+def rans_phase() -> dict:
+    """The lane-coder kernels at the path's shape, chained over 5 slices,
+    against their plain versions and the C++ host coder: exact equality."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.entropy import device_decode as dd
+    from dcae_tpu_torch.entropy import rans
+    from dcae_tpu_torch.entropy.gaussian import get_scale_table
+    from dcae_tpu_torch.entropy.tables import build_gaussian_table
+    from dcae_tpu_torch.models.codec import _auto_lanes
+    from dcae_tpu_torch.ops.kernels import rans_lanes as rl
+
+    cfg = DCAEConfig()
+    n, S, K = RANS_N, RANS_SLICES, RANS_LANES
+    if (S, K) != (cfg.num_slices, _auto_lanes(n)):
+        fail(f"lane coders: the path codes {cfg.num_slices} slices on "
+             f"{_auto_lanes(n)} lanes, this phase {S} on {K}")
+    g = build_gaussian_table(
+        get_scale_table(cfg.scales_min, cfg.scales_max, cfg.scales_levels),
+        tail_mass=cfg.gc_tail_mass)
+    tables = (g.quantized_cdf, g.cdf_length, g.offset)
+    sym, idx = draw_symbols(g, n, S, np.random.default_rng(5))
+
+    # the host coder: chained encode (last slice first), chained decode
+    t0 = time.perf_counter()
+    streams, st = [None] * S, None
+    for s in reversed(range(S)):
+        streams[s], st = rans.encode_interleaved(sym[s], idx[s], *tables, K,
+                                                 init_states=st)
+    host_enc_ms = (time.perf_counter() - t0) * 1e3
+    header = st.copy()
+    t0 = time.perf_counter()
+    cur = header
+    for s in range(S):
+        out, cur = rans.decode_interleaved_ref(streams[s], cur, idx[s],
+                                               *tables, K,
+                                               return_states=True)
+        if not np.array_equal(out, sym[s]):
+            fail("host coder does not decode its own stream")
+    host_dec_ms = (time.perf_counter() - t0) * 1e3
+    n_words = np.array([len(b) // 2 for b in streams], np.int32)
+
+    dev = "cuda"
+    enc_sf, offs, maxpos, stride = dd.enc_tables_to_device(
+        dd.build_enc_tables(*tables), dev)
+    idx_d = torch.from_numpy(idx).to(dev)
+    pos_d = torch.from_numpy(sym - g.offset[idx]).to(dev)
+    in_range = torch.ones((S, n), dtype=torch.bool, device=dev)
+
+    def encode_chain(fn):
+        res, state = [None] * S, None
+        for s in reversed(range(S)):
+            res[s] = fn(pos_d[s], idx_d[s], in_range[s], enc_sf, stride, K,
+                        state)
+            state = res[s][2]
+        return res
+
+    got = encode_chain(rl.rans_lanes_encode)
+    want = encode_chain(rl.rans_lanes_encode_ref)
+    torch.cuda.synchronize()
+    enc_ok = True
+    for s in range(S):
+        (w, nw, st_k, esc), (w_p, nw_p, st_p, esc_p) = got[s], want[s]
+        enc_ok &= bool(torch.equal(w, w_p) and torch.equal(nw, nw_p)
+                       and torch.equal(st_k, st_p)
+                       and torch.equal(esc, esc_p) and not bool(esc))
+        enc_ok &= int(nw) == n_words[s] and \
+            rl.to_u16(w)[:int(nw)][::-1].tobytes() == streams[s]
+    enc_ok &= np.array_equal(rl.to_u32(got[0][2]), header)
+    # an out-of-range mark on one symbol must raise the escape flag
+    marked = in_range[0].clone()
+    marked[n // 3] = False
+    esc_k = rl.rans_lanes_encode(pos_d[0], idx_d[0], marked, enc_sf, stride,
+                                 K)[3]
+    enc_ok &= bool(esc_k)
+
+    words = np.zeros((S, int(n_words.max()) + 1000), np.uint16)   # padded
+    for s in range(S):
+        words[s, :n_words[s]] = np.frombuffer(streams[s], np.uint16)
+    words_d = torch.from_numpy(words.view(np.int16)).to(dev)
+    nw_d = torch.from_numpy(n_words).to(dev)
+    header_d = rl.u32_bits(header, dev)
+    luts = {p: dd.slot_tables_to_device(
+        dd.build_slot_tables(*tables, paired=p), dev) for p in (True, False)}
+
+    def decode_chain(fn, paired=True, words_d=words_d, start=header_d):
+        res, state = [], start
+        for s in range(S):
+            res.append(fn(words_d[s], nw_d[s], state, idx_d[s],
+                          *luts[paired], K, paired, s == S - 1))
+            state = res[-1][2]
+        return res
+
+    def all_ok(res) -> bool:
+        return all(bool(r[1]) for r in res)
+
+    sym_d = torch.from_numpy(sym).to(dev)
+    dec_ok = True
+    for paired in (True, False):
+        got_d = decode_chain(rl.rans_lanes_decode, paired)
+        want_d = decode_chain(rl.rans_lanes_decode_ref, paired)
+        torch.cuda.synchronize()
+        for s in range(S):
+            dec_ok &= all(bool(torch.equal(a, b))
+                          for a, b in zip(got_d[s], want_d[s]))
+            dec_ok &= bool(torch.equal(got_d[s][0], sym_d[s]))
+        dec_ok &= all_ok(got_d) and bool(
+            (got_d[-1][2] == rl.RANS_L16).all())
+    flipped = words_d.clone()
+    flipped[2, 50] ^= -1
+    bumped = header_d.clone()
+    bumped[0] += 1
+    corrupt_found = not all_ok(decode_chain(rl.rans_lanes_decode,
+                                            words_d=flipped)) \
+        and not all_ok(decode_chain(rl.rans_lanes_decode, start=bumped))
+
+    # one run of the path = the chain of 5 launches; a slice = a fifth
+    enc_ms = time_ms(lambda: encode_chain(rl.rans_lanes_encode))
+    dec_ms = time_ms(lambda: decode_chain(rl.rans_lanes_decode))
+    enc_plain = time_ms(lambda: encode_chain(rl.rans_lanes_encode_ref),
+                        iters=1, warmup=0)
+    dec_plain = time_ms(lambda: decode_chain(rl.rans_lanes_decode_ref),
+                        iters=1, warmup=0)
+    total_words = int(n_words.sum())
+    # bytes a slice, each input read once and each output written once:
+    # the stream's words (what this run's symbols need, not the buffer),
+    # 4 n of indexes, 4 n of symbols or positions, the encoder's n flags,
+    # K states in and K out, and of the lookup table the entries the n
+    # symbols touch or the whole table, whichever is less
+    stream_bytes = 2 * total_words / S
+    dec_table = min(8 * n, 4 * luts[True][1].numel())
+    enc_table = min(4 * n, 4 * enc_sf.numel())
+    dec_bytes = stream_bytes + 8 * n + dec_table + 8 * K
+    enc_bytes = stream_bytes + 9 * n + enc_table + 8 * K
+    rows = {}
+    for name, ok, ms, plain, host, nbytes in (
+            ("rans_lanes_decode", dec_ok and corrupt_found, dec_ms,
+             dec_plain, host_dec_ms, dec_bytes),
+            ("rans_lanes_encode", enc_ok, enc_ms, enc_plain, host_enc_ms,
+             enc_bytes)):
+        b_ms = nbytes / H100_BYTES_PER_S * 1e3
+        row = {"case": f"n={n} K={K} x{S} chained", "rel_err": 0.0,
+               "max_abs_err": 0.0, "tol": 0.0, "ok": bool(ok),
+               "main_path": True, "per_run": S, "ms": ms / S,
+               "plain_ms": plain / S, "library_ms": None,
+               "host_coder_ms": host / S, "bound_ms": b_ms,
+               "bound_by": "bytes", "bound_bytes": nbytes,
+               "bound_share": b_ms / (ms / S),
+               "chain_steps": -(-n // K),
+               "bits_per_symbol": 16 * total_words / (S * n)}
+        print(f"{name} {row['case']}: exact vs plain and host coder "
+              f"{row['ok']}, ms a slice {row['ms']:.4f} plain "
+              f"{row['plain_ms']:.1f} host C++ coder "
+              f"{row['host_coder_ms']:.3f} bound {b_ms:.5f} (bytes; a chain "
+              f"of {row['chain_steps']} steps) "
+              f"{row['bits_per_symbol']:.2f} bits a symbol", flush=True)
+        rows[name] = [row]
+    if not dec_ok:
+        fail("rans_lanes_decode differs from its plain version or the host "
+             "coder")
+    if not corrupt_found:
+        fail("rans_lanes_decode: a flipped word or bumped state kept ok")
+    if not enc_ok:
+        fail("rans_lanes_encode differs from its plain version or the host "
+             "coder")
+    return rows
 
 
 def kernel_summary(results: dict, launches: dict) -> list:
@@ -296,6 +501,11 @@ def kernel_summary(results: dict, launches: dict) -> list:
                      "dcae_tpu/ops/pallas/conv_glu.py:190"),
         "wmsa_attention": ("dcae_tpu_torch/csrc/wmsa_block.cu",
                            "dcae_tpu/ops/pallas/wmsa_v3.py:215"),
+        # XLA loops in the JAX package, not Pallas kernels
+        "rans_lanes_decode": ("dcae_tpu_torch/csrc/rans_lanes.cu",
+                              "dcae_tpu/entropy/device_decode.py:153"),
+        "rans_lanes_encode": ("dcae_tpu_torch/csrc/rans_lanes.cu",
+                              "dcae_tpu/entropy/device_decode.py:428"),
     }
     out = []
     for name, rows in results.items():
@@ -317,7 +527,10 @@ def kernel_summary(results: dict, launches: dict) -> list:
             "shapes": [{k: r[k] for k in ("case", "ms", "plain_ms",
                                           "library_ms", "bound_ms",
                                           "bound_by", "rel_err", "per_run",
-                                          "tflops", "bound_share")}
+                                          "tflops", "bound_share",
+                                          "host_coder_ms", "chain_steps",
+                                          "bound_bytes",
+                                          "bits_per_symbol") if k in r}
                        for r in rows],
         })
     return out
@@ -385,11 +598,15 @@ def synthetic_kodak(n: int, h: int = 512, w: int = 768,
 
 def _wrappers() -> dict:
     from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu
+    from dcae_tpu_torch.ops.kernels.rans_lanes import (rans_lanes_decode,
+                                                       rans_lanes_encode)
     from dcae_tpu_torch.ops.kernels.wmsa_attention import wmsa_attention
     from dcae_tpu_torch.ops.kernels.wmsa_block import wmsa_block
 
     return {"wmsa_block": wmsa_block, "conv_glu": conv_glu,
-            "wmsa_attention": wmsa_attention}
+            "wmsa_attention": wmsa_attention,
+            "rans_lanes_encode": rans_lanes_encode,
+            "rans_lanes_decode": rans_lanes_decode}
 
 
 def counted(fn):
@@ -556,6 +773,225 @@ def run_certified(codec, imgs: np.ndarray, staged: dict, want: dict
     return res
 
 
+def dti_bytes(enc: dict) -> int:
+    """Bytes of the DTI container(s) of an enc dict, computed from the
+    layout (runtime/container.py): a header, the lane states, each slice's
+    stream and patches, the z streams. A batch counts one header and state
+    set, as its images share the lane set."""
+    states = np.asarray(enc["states"])
+    return (15 + 4 * states.size
+            + sum(4 + len(b) for b in enc["istreams"])
+            + sum(2 + 8 * len(p[0]) for p in enc["patches"])
+            + sum(4 + len(z) for z in enc["z_strings"]))
+
+
+def same_streams(a: dict, b: dict) -> bool:
+    return (a["istreams"] == b["istreams"]
+            and np.array_equal(a["states"], b["states"])
+            and a["z_strings"] == b["z_strings"]
+            and len(a["patches"]) == len(b["patches"])
+            and all(np.array_equal(pa, pb) and np.array_equal(va, vb)
+                    for (pa, va), (pb, vb) in zip(a["patches"],
+                                                  b["patches"])))
+
+
+def no_host_wait(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any operation
+    that makes the host wait for the device raises."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def open_patch_cap(codec, x_dev, label: str) -> tuple:
+    """Random weights put symbols outside the coding tables; the profile
+    carries them in a patch list of at most codec.patch_cap a slice. Prints
+    each slice's count and, only where one exceeds the cap, sets the cap to
+    the slice's symbol count. Returns (counts, opened)."""
+    S = codec.cfg.num_slices
+    pend = codec._compress_device_dispatch(x_dev)
+    counts = [int(c) for c in pend["head"].cpu().numpy()[S:2 * S]]
+    n_slice = pend["cap"] - 1
+    print(f"{label}: {n_slice} symbols a slice on {pend['K']} lanes; "
+          f"out-of-table symbols a slice {counts} (patch_cap "
+          f"{codec.patch_cap})", flush=True)
+    opened = max(counts) > codec.patch_cap
+    if opened:
+        codec.patch_cap = n_slice
+        print(f"{label}: more than a patch list holds (random weights): "
+              f"codec.patch_cap set to {n_slice}", flush=True)
+    return counts, opened
+
+
+def run_interleaved(codec, imgs: np.ndarray, staged: dict,
+                    certified: dict) -> dict:
+    """The device-coding profile on the staged part's codec, images and
+    weights: compress_device -> decompress_interleaved, counted, checked
+    against the staged decode and the host coder, timed; the DTI2 file
+    round trip; the serving loop."""
+    import torch
+    from dcae_tpu_torch.runtime import container
+
+    cfg = codec.cfg
+    B, H, W, _ = imgs.shape
+    S = cfg.num_slices
+    x_dev = codec._input(imgs)
+    zero = {"wmsa_attention": 0}
+    want_enc = {"wmsa_block": 15, "conv_glu": 17, "rans_lanes_encode": S,
+                "rans_lanes_decode": 0, **zero}
+    want_dec = {"wmsa_block": 15, "conv_glu": 17, "rans_lanes_encode": 0,
+                "rans_lanes_decode": S, **zero}
+
+    _, opened = open_patch_cap(codec, x_dev, "interleaved")
+    n_slice = B * (H // cfg.y_downsample) * (W // cfg.y_downsample) \
+        * cfg.slice_dim
+
+    codec.decompress_interleaved(codec.compress_device(imgs))   # warm-up
+    enc, enc_counts, enc_ms = counted(lambda: codec.compress_device(imgs))
+    dec, dec_counts, dec_ms = counted(
+        lambda: codec.decompress_interleaved(enc))
+    # the kernels phase held the lane coders to their plain versions at
+    # (RANS_N, RANS_SLICES, RANS_LANES): the path must launch them there
+    if (n_slice, S, enc["lanes"]) != (RANS_N, RANS_SLICES, RANS_LANES):
+        fail(f"interleaved: the path coded {S} slices of {n_slice} symbols "
+             f"on {enc['lanes']} lanes, the kernels phase {RANS_SLICES} of "
+             f"{RANS_N} on {RANS_LANES}")
+    ok = bool(dec["ok"])
+    same_x = bool(torch.equal(dec["x_hat"], staged["x_hat"]))
+    host_enc, _, host_ms = counted(lambda: codec.compress_interleaved(imgs))
+    same_host = same_streams(enc, host_enc)
+    bad = dict(enc)
+    worst = max(range(S), key=lambda s: len(enc["istreams"][s]))
+    stream = bytearray(enc["istreams"][worst])
+    stream[len(stream) // 2] ^= 0xFF
+    bad["istreams"] = [bytes(stream) if s == worst else b
+                       for s, b in enumerate(enc["istreams"])]
+    corrupt_ok = bool(codec.decompress_interleaved(bad)["ok"])
+
+    # the dispatch phase and the device part of the decode, with every
+    # host wait an error
+    pend = no_host_wait(lambda: codec._compress_device_dispatch(x_dev))
+    inputs = codec._interleaved_inputs(enc)
+    dec2 = no_host_wait(
+        lambda: codec._decompress_interleaved_device(*inputs))
+    no_wait_same = same_streams(enc, codec._compress_device_fetch(pend)) \
+        and bool(dec2["ok"]) and bool(torch.equal(dec2["x_hat"],
+                                                  dec["x_hat"]))
+
+    enc_med, enc_runs = median_ms(lambda: codec.compress_device(imgs),
+                                  enc_ms, B)
+    dec_med, dec_runs = median_ms(lambda: codec.decompress_interleaved(enc),
+                                  dec_ms, B)
+    host_med, _ = median_ms(lambda: codec.compress_interleaved(imgs),
+                            host_ms, B)
+    nbytes = dti_bytes(enc)
+    bpp, psnr = quality(dec["x_hat"], imgs, nbytes)
+
+    # one image as a DTI2 file: pack -> file -> unpack -> decode
+    one = codec.compress_device(imgs[:1])
+    one_counts = [len(p[0]) for p in one["patches"]]
+    file_trip = None
+    if max(one_counts) < 1 << 16:
+        blob = container.pack_bin_interleaved(one, (H, W))
+        with tempfile.TemporaryDirectory(prefix="dcae_smoke_") as tmp:
+            path = os.path.join(tmp, "img0.bin")
+            with open(path, "wb") as f:
+                f.write(blob)
+            with open(path, "rb") as f:
+                data = f.read()
+        back, _, size = container.unpack_bin_interleaved(
+            data, cfg.pad_multiple, cfg.z_downsample)
+        d_file = codec.decompress_interleaved(back)
+        d_mem = codec.decompress_interleaved(one)
+        file_trip = (container.is_interleaved_bin(data)
+                     and data[:4] == b"DTI2" and size == (H, W)
+                     and len(blob) == dti_bytes(one)
+                     and same_streams(one, back)
+                     and bool(d_file["ok"])
+                     and bool(torch.equal(d_file["x_hat"],
+                                          d_mem["x_hat"])))
+        print(f"interleaved: DTI2 file round trip of image 0 "
+              f"({len(blob)} bytes, patches a slice {one_counts}): "
+              f"{file_trip}", flush=True)
+    else:
+        print(f"interleaved: DTI2 file round trip skipped: patches a "
+              f"slice {one_counts} do not fit the container's 16-bit "
+              "count", flush=True)
+
+    # the serving loop: 3 batches, every one through the profile
+    t0 = time.perf_counter()
+    outs = codec.encdec_pipeline_interleaved([imgs] * 3)
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t0) * 1e3 / (3 * B)
+    # a longer run: the producer thread's first calls (its own cuDNN and
+    # cuBLAS handles) weigh less
+    t0 = time.perf_counter()
+    outs8 = codec.encdec_pipeline_interleaved([imgs] * 8)
+    torch.cuda.synchronize()
+    pipe8_ms = (time.perf_counter() - t0) * 1e3 / (8 * B)
+    outs = outs + outs8[-1:]
+    profiles = [o["profile"] for o in outs[:3]]
+    pipe_ok = len(outs) == 4 and all(
+        bool(o["ok"]) and bool(torch.equal(o["x_hat"], dec["x_hat"]))
+        for o in outs)
+
+    res = {"ok": ok, "x_hat_equals_staged": same_x,
+           "streams_equal_host_coder": same_host,
+           "corrupt_stream_ok": corrupt_ok,
+           "no_host_wait_same_result": no_wait_same,
+           "patches_per_slice": [len(p[0]) for p in enc["patches"]],
+           "patch_cap_opened": opened, "dti2_file_round_trip": file_trip,
+           "lanes": enc["lanes"], "bucket": enc["bucket"],
+           "stream_bytes": [len(b) for b in enc["istreams"]],
+           "bpp": bpp, "classic_bpp": staged["bpp"], "psnr_db": psnr,
+           "encode_ms_per_image": enc_med, "decode_ms_per_image": dec_med,
+           "encode_ms_runs": enc_runs, "decode_ms_runs": dec_runs,
+           "host_coder_encode_ms_per_image": host_med,
+           "staged_encode_ms_per_image": staged["encode_ms_per_image"],
+           "per_slice_decode_ms_per_image": staged["decode_ms_per_image"],
+           "split_encode_ms_per_image": certified["encode_ms_per_image"],
+           "shipped_decode_ms_per_image":
+               certified["shipped_decode_ms_per_image"],
+           "pipeline_ms_per_image": pipe_ms,
+           "pipeline_8_batches_ms_per_image": pipe8_ms,
+           "pipeline_profiles": profiles,
+           "launches_compress": enc_counts,
+           "launches_decompress": dec_counts}
+    print("interleaved: " + json.dumps(res), flush=True)
+    print(f"interleaved: encode {enc_med:.2f} ms per image (staged "
+          f"{staged['encode_ms_per_image']:.2f}, split "
+          f"{certified['encode_ms_per_image']:.2f}), decode {dec_med:.2f} "
+          f"(per-slice {staged['decode_ms_per_image']:.2f}, shipped-index "
+          f"{certified['shipped_decode_ms_per_image']:.2f}), pipeline "
+          f"{pipe_ms:.2f} ms per image over 3 batches, {pipe8_ms:.2f} over "
+          f"8; bpp {bpp:.4f} (classic "
+          f"{staged['bpp']:.4f})", flush=True)
+    if not ok:
+        fail("interleaved: decode checksum ok is false")
+    if not same_x:
+        fail("interleaved: x_hat differs from the staged part's decode")
+    if not same_host:
+        fail("interleaved: compress_device and compress_interleaved differ")
+    if corrupt_ok:
+        fail("interleaved: a corrupt stream decoded with ok true")
+    if not no_wait_same:
+        fail("interleaved: the run without host waits gave another result")
+    if file_trip is False:
+        fail("interleaved: DTI2 file round trip")
+    if profiles != ["interleaved"] * 3 or not pipe_ok:
+        fail(f"interleaved: serving loop: profiles {profiles}, results "
+             f"equal to the sequential decode: {pipe_ok}")
+    check_counts("compress_device", enc_counts, want_enc)
+    check_counts("decompress_interleaved", dec_counts, want_dec)
+    return res
+
+
 def slice_phase() -> dict:
     import torch
     from dcae_tpu_torch.config import DCAEConfig
@@ -563,7 +999,9 @@ def slice_phase() -> dict:
 
     imgs = synthetic_kodak(BATCH)
     out = {}
-    want = {"wmsa_block": 15, "conv_glu": 17, "wmsa_attention": 0}
+    no_lanes = {"rans_lanes_encode": 0, "rans_lanes_decode": 0}
+    want = {"wmsa_block": 15, "conv_glu": 17, "wmsa_attention": 0,
+            **no_lanes}
     t0 = time.perf_counter()
     codec = DCAECodec(DCAEConfig(), dtype=torch.bfloat16, seed=0)
     codec.update()
@@ -571,6 +1009,8 @@ def slice_phase() -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     staged = run_staged(codec, imgs, "slice", want)
     out["certified"] = run_certified(codec, imgs, staged, want)
+    out["interleaved"] = run_interleaved(codec, imgs, staged,
+                                         out["certified"])
     codec.close()
     del codec
 
@@ -580,7 +1020,8 @@ def slice_phase() -> dict:
                       dtype=torch.bfloat16, seed=0)
     codec.update()
     attn = run_staged(codec, imgs, "attention-only",
-                      {"wmsa_block": 0, "conv_glu": 17, "wmsa_attention": 15})
+                      {"wmsa_block": 0, "conv_glu": 17, "wmsa_attention": 15,
+                       **no_lanes})
     codec.close()
     d_bpp = abs(attn["bpp"] - staged["bpp"]) / staged["bpp"]
     d_psnr = abs(attn["psnr_db"] - staged["psnr_db"])
@@ -604,9 +1045,10 @@ def _strings(enc: dict) -> dict:
 def profile_phase() -> None:
     """Where one compress + decompress of the slice spends device time:
     torch.profiler over a warm run, kernels summed by name, and the share
-    of the wall time the device was busy. Two pairs on the same codec:
-    the staged encoder with the per-slice decoder, and the one-fetch
-    encoder (compress_with_indexes) with the shipped-index decoder."""
+    of the wall time the device was busy. Three pairs on the same codec:
+    the staged encoder with the per-slice decoder, the one-fetch encoder
+    (compress_with_indexes) with the shipped-index decoder, and the
+    interleaved profile (compress_device, decompress_interleaved)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -624,7 +1066,12 @@ def profile_phase() -> None:
             lambda: codec.compress_with_indexes(imgs),
             lambda enc: codec.decompress(**_strings(enc),
                                          indexes=enc["indexes"])),
+        "compress_device + decompress_interleaved": (
+            lambda: codec.compress_device(imgs),
+            lambda enc: codec.decompress_interleaved(enc)),
     }
+    # the patch budget by the slice phase's rule
+    open_patch_cap(codec, codec._input(imgs), "profile")
     dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                             getattr(e, "self_cuda_time_total", 0))
     for label, (encode, decode) in pairs.items():
@@ -654,7 +1101,8 @@ def profile_phase() -> None:
             # cuDNN's implicit-GEMM convolutions (fprop, dgrad) are
             # convolutions, not matrix products
             low = name.lower()
-            g = ("wmsa_attention kernels" if "wmsa_" in name
+            g = ("rans_lanes kernels" if "rans_lanes" in name else
+                 "wmsa_attention kernels" if "wmsa_" in name
                  and "<false>" in name
                  else "wmsa_block kernels" if "wmsa_" in name else
                  "conv_glu bf16 kernels" if "conv_glu_bf16" in name else
@@ -672,7 +1120,8 @@ def profile_phase() -> None:
         # the 15 longest, and every conv_glu phase kernel
         ranked = sorted(events, key=dev, reverse=True)
         for e in ranked[:15] + [e for e in ranked[15:]
-                                if "conv_glu" in e.key]:
+                                if "conv_glu" in e.key
+                                or "rans_lanes" in e.key]:
             print(f"profile {label} kernel {dev(e) / 1e3:9.3f} ms "
                   f"x{e.count:4d}  {e.key[:90]}", flush=True)
     codec.close()
@@ -762,9 +1211,11 @@ def main() -> int:
     if results is not None and slice_res is not None:
         # each kernel's launches on the path that runs it: wmsa_block and
         # conv_glu on the default codec, wmsa_attention on the
-        # attention-only one
+        # attention-only one, the lane coders on the interleaved profile
         paths = {"wmsa_block": "staged", "conv_glu": "staged",
-                 "wmsa_attention": "attention_only"}
+                 "wmsa_attention": "attention_only",
+                 "rans_lanes_encode": "interleaved",
+                 "rans_lanes_decode": "interleaved"}
         launches = {k: slice_res[paths[k]]["launches_compress"][k]
                     + slice_res[paths[k]]["launches_decompress"][k]
                     for k in results}

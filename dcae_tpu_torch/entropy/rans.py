@@ -1,5 +1,7 @@
-"""ctypes binding of the rANS coder (native/rans.cpp), for the classic
-codec.
+"""ctypes binding of the rANS coder (native/rans.cpp): the classic stream
+and the K-lane interleaved profile (encode_interleaved /
+decode_interleaved_ref, the host coder every device-coded stream is held
+to bit for bit).
 
 The C++ source is the JAX package's coder, its code unchanged (three
 comments differ: where the reference lives and how the copy is built), so
@@ -59,6 +61,15 @@ def _load() -> ctypes.CDLL:
             f32p, i64, ctypes.c_int32, u32p]
         lib.dcae_rans_build_lut.restype = ctypes.c_int32
         lib.dcae_rans_build_lut.argtypes = [i32p, i64, i64, i32p, u64p]
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        lib.dcae_rans_encode_interleaved.restype = i64
+        lib.dcae_rans_encode_interleaved.argtypes = [
+            i32p, i32p, i64, i32p, i64, i64, i32p, i32p, ctypes.c_int32,
+            u16p, i64, u32p, u32p]
+        lib.dcae_rans_decode_interleaved.restype = ctypes.c_int32
+        lib.dcae_rans_decode_interleaved.argtypes = [
+            u16p, i64, u32p, i32p, i64, i32p, i64, i64, i32p, i32p,
+            ctypes.c_int32, i32p, u32p, ctypes.c_int32]
         _lib = lib
         return lib
 
@@ -219,3 +230,89 @@ def pmf_to_quantized_cdf(pmf, precision: int = 16) -> np.ndarray:
     if rc != 0:
         raise ValueError(f"pmf_to_quantized_cdf failed (rc={rc})")
     return out.astype(np.int32)
+
+
+class EscapeError(ValueError):
+    """An interleaved-profile encode met a symbol outside its CDF row's
+    in-range buckets (the lane decoder has no bypass path), or more of
+    them than the patch list holds. Callers fall back to the classic
+    stream format."""
+
+
+def _u32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+
+
+def encode_interleaved(symbols, indexes, cdfs, cdf_lengths, offsets,
+                       lanes: int, init_states=None
+                       ) -> tuple[bytes, np.ndarray]:
+    """K-lane interleaved rANS encode: uint32 lane states, 16-bit renorm
+    words, strict round-robin symbol order (symbol i on lane i % K), ONE
+    shared word stream. Returns (stream_bytes, states_u32[K]); states are
+    the decode-START states. Raises EscapeError when a symbol falls outside
+    its row's in-range buckets.
+
+    init_states (K,) uint32: start the lanes from these states instead of
+    the 2^16 base. The chained format encodes slice s+1 first and feeds
+    its final states in here when encoding slice s, so one lane set spans
+    all slices."""
+    lib = _load()
+    symbols = _as_i32(symbols)
+    indexes = _as_i32(indexes)
+    if symbols.shape != indexes.shape:
+        raise ValueError("symbols and indexes must have equal length")
+    cdfs, cdf_lengths, offsets = _check_tables(cdfs, cdf_lengths, offsets)
+    n = symbols.size
+    states = np.empty(lanes, dtype=np.uint32)
+    capacity = n + 64            # at most one renorm word per symbol
+    out = np.empty(capacity, dtype=np.uint16)
+    init_p = None
+    if init_states is not None:
+        init_states = np.ascontiguousarray(np.asarray(init_states),
+                                           dtype=np.uint32)
+        if init_states.size != lanes:
+            raise ValueError("init_states must have `lanes` entries")
+        init_p = _u32p(init_states)
+    written = lib.dcae_rans_encode_interleaved(
+        _i32p(symbols), _i32p(indexes), n,
+        _i32p(cdfs), cdfs.shape[0], cdfs.shape[1],
+        _i32p(cdf_lengths), _i32p(offsets), lanes,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), capacity,
+        _u32p(states), init_p)
+    if written == -3:
+        raise EscapeError("symbol outside in-range CDF buckets")
+    if written < 0:
+        raise ValueError(f"interleaved rANS encode failed (rc={written})")
+    return out[:written].tobytes(), states
+
+
+def decode_interleaved_ref(stream: bytes, states, indexes, cdfs,
+                           cdf_lengths, offsets, lanes: int,
+                           return_states: bool = False):
+    """C++ reference decoder of the interleaved profile (tests, and the
+    yardstick of the lane kernels).
+
+    return_states=True decodes an INTERMEDIATE slice of the chained
+    format: the base-state checksum is skipped (it applies only after the
+    chain's last slice) and (symbols, final_states) is returned, the
+    states to thread into the next slice."""
+    lib = _load()
+    indexes = _as_i32(indexes)
+    cdfs, cdf_lengths, offsets = _check_tables(cdfs, cdf_lengths, offsets)
+    words = np.ascontiguousarray(np.frombuffer(stream, dtype=np.uint16))
+    states = np.ascontiguousarray(np.asarray(states), dtype=np.uint32)
+    if states.size != lanes:
+        raise ValueError("states must have `lanes` entries")
+    out = np.empty(indexes.size, dtype=np.int32)
+    fin = np.empty(lanes, dtype=np.uint32)
+    rc = lib.dcae_rans_decode_interleaved(
+        words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), words.size,
+        _u32p(states), _i32p(indexes), indexes.size,
+        _i32p(cdfs), cdfs.shape[0], cdfs.shape[1],
+        _i32p(cdf_lengths), _i32p(offsets), lanes, _i32p(out), _u32p(fin),
+        0 if return_states else 1)
+    if rc != 0:
+        raise ValueError(f"interleaved rANS decode failed (rc={rc})")
+    if return_states:
+        return out, fin
+    return out

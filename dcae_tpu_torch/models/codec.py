@@ -18,6 +18,19 @@
               host-decodes every slice first and makes one decode_all call.
   latent      compress_latent / decompress_latent hand off the raw latent
               y instead of a stream.
+  interleaved the device-coding profile: the y streams are K-lane
+              interleaved rANS, coded ON THE DEVICE in both directions
+              (entropy/device_decode.py). compress_device = a dispatch
+              phase that queues everything without waiting for the device
+              (analysis, a replay of the decoder's own function, the lane
+              encoder) + a fetch phase; compress_interleaved codes the same
+              streams with the host coder; decompress_interleaved
+              host-decodes the (tiny) z stream and then never waits for
+              the device; encdec_pipeline_interleaved is the profile's
+              serving loop. Out-of-table symbols ride a patch list of at
+              most `patch_cap` entries a slice; beyond it (untrained
+              weights) the encoders raise rans.EscapeError and the caller
+              falls back to the classic format.
 
 Both directions must compute bitwise-equal mu/sigma/indexes on the card,
 so the codec turns TF32 off and makes cuDNN deterministic; the two kernels
@@ -31,6 +44,9 @@ GPU and without device="cpu" they raise.
 
 from __future__ import annotations
 
+import queue
+import threading
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
@@ -38,10 +54,11 @@ import numpy as np
 import torch
 
 from dcae_tpu_torch.config import DCAEConfig
-from dcae_tpu_torch.entropy import rans
+from dcae_tpu_torch.entropy import device_decode, rans
 from dcae_tpu_torch.entropy.gaussian import get_scale_table
 from dcae_tpu_torch.entropy.tables import CodecTables, build_codec_tables
 from dcae_tpu_torch.models.dcae import DCAE
+from dcae_tpu_torch.ops.kernels.rans_lanes import to_u16, to_u32
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,6 +82,25 @@ def set_deterministic() -> None:
     torch.backends.cudnn.benchmark = False
 
 
+def _len_bucket(n: int, cap: int) -> int:
+    """Smallest of {cap/16, cap/8, cap/4, cap/2, cap} >= n: the word-buffer
+    widths the interleaved container records."""
+    for d in (16, 8, 4, 2):
+        if n <= cap // d:
+            return max(cap // d, 1)
+    return cap
+
+
+def _auto_lanes(n_symbols: int) -> int:
+    """Lane count for the interleaved profile: enough lanes to keep the
+    device loop short (T = n / K steps), few enough that the K uint32
+    state header stays a small fraction of the payload."""
+    for k in (1024, 512, 256, 128):
+        if n_symbols >= k * 256:
+            return k
+    return 64
+
+
 def _nchw_flat(x_hwc: np.ndarray) -> np.ndarray:
     """(H, W, C) -> channel-major flat (the reference's symbol order)."""
     return np.ascontiguousarray(x_hwc.transpose(2, 0, 1)).reshape(-1)
@@ -79,12 +115,14 @@ class DCAECodec:
 
     def __init__(self, cfg: DCAEConfig, params=None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
-                 device=None):
+                 device=None, patch_cap: int = 512):
         """params: a state dict in the port's (= the reference's) naming,
         values numpy arrays or tensors (utils.convert builds one from Flax
         params or a reference checkpoint); None draws a seeded random init.
         dtype: compute dtype of g_a/h_a/g_s (default from
-        cfg.compute_dtype); the entropy side always runs f32."""
+        cfg.compute_dtype); the entropy side always runs f32.
+        patch_cap: most out-of-table symbols a slice of the interleaved
+        profile may carry in its patch list (also an attribute)."""
         self.device = resolve_device(device)
         set_deterministic()
         if dtype is None:
@@ -109,6 +147,11 @@ class DCAECodec:
         # per-image streams are independent; the C coder releases the
         # interpreter lock, so a batch entropy-codes in parallel
         self._pool = ThreadPoolExecutor(max_workers=8)
+        self.patch_cap = int(patch_cap)
+        # device-resident tables of the interleaved profile, rebuilt when
+        # the coding tables change: (tables they were built from, value)
+        self._slot_dev = (None, None)         # (tables, luts)
+        self._enc_lut_dev = (None, None)
 
     def close(self) -> None:
         self._pool.shutdown()
@@ -205,15 +248,20 @@ class DCAECodec:
         out["z_symbols"] = z_symbols
         return out
 
+    def _fetch_encode_arrays(self, out: dict):
+        """(z_symbols, y_symbols, y_indexes int32) of an encode's arrays as
+        numpy: the one hand-off from the device to the host coders."""
+        return (out["z_symbols"].cpu().numpy(),
+                out["y_symbols"].cpu().numpy(),
+                out["y_indexes"].cpu().numpy().astype(np.int32))
+
     def _finish_fused(self, out: dict, record: Optional[list] = None
                       ) -> dict:
         """Host rANS coding of an encode's arrays, fetched at once: one
         stream per image, the slices in order, each channel-major (NCHW),
         exactly as the staged encoder writes them."""
         g = self._require_tables().gaussian
-        z_sym = out["z_symbols"].cpu().numpy()
-        y_sym = out["y_symbols"].cpu().numpy()
-        y_idx = out["y_indexes"].cpu().numpy().astype(np.int32)
+        z_sym, y_sym, y_idx = self._fetch_encode_arrays(out)
         if record is not None:
             record.extend(zip(y_idx, y_sym))
         B, zh, zw, _ = z_sym.shape
@@ -374,6 +422,411 @@ class DCAECodec:
         result = self._finish_fused(out)
         result["indexes"] = out["y_indexes"].cpu().numpy()
         return result
+
+    # ------------------------------------------------ interleaved profile --
+
+    def _slot_luts(self):
+        """Device-resident slot tables of the lane decoder, in the paired
+        layout (row offsets, (df, bucket position) pairs; 32 MB for the
+        64-row Gaussian bank); built once per table bake. Both layouts give
+        the same symbols, so every stream decodes from this one, whatever
+        layout its container names."""
+        t = self._require_tables()
+        src, luts = self._slot_dev
+        if src is not t:
+            g = t.gaussian
+            luts = device_decode.slot_tables_to_device(
+                device_decode.build_slot_tables(
+                    g.quantized_cdf, g.cdf_length, g.offset, paired=True),
+                self.device)
+            self._slot_dev = (t, luts)
+        return luts
+
+    def _enc_luts(self):
+        """Device-resident encode-side tables of the profile: (enc_sf,
+        offsets, maxpos, stride); built once per table bake."""
+        t = self._require_tables()
+        src, luts = self._enc_lut_dev
+        if src is not t:
+            g = t.gaussian
+            luts = device_decode.enc_tables_to_device(
+                device_decode.build_enc_tables(
+                    g.quantized_cdf, g.cdf_length, g.offset), self.device)
+            self._enc_lut_dev = (t, luts)
+        return luts
+
+    def compress_device(self, x, lanes: Optional[int] = None,
+                        chain: bool = True, unroll: int = 2,
+                        certify: bool = True, paired: bool = True) -> dict:
+        """Encode into the interleaved profile with the y streams coded ON
+        THE DEVICE: the host fetches streams of entropy size instead of raw
+        symbols. Decodes with decompress_interleaved; the streams equal
+        compress_interleaved's bit for bit.
+
+        Out-of-table Gaussian-tail symbols (the ones the classic format
+        bypass-codes) ride a per-slice patch list: clamped in the stream,
+        the exact value restored after the device's entropy decode. Raises
+        rans.EscapeError when a slice has more of them than self.patch_cap
+        (untrained weights) or a symbol's row has no in-range bucket at
+        all: fall back to the classic format.
+
+        certify=True (default): the encoder teacher-forces THE DECODER'S
+        OWN function (DCAE.decode_device_streams, override=True) with the
+        raw latent y. That replay is the encoder's only channel-AR pass:
+        it yields the symbols (round(y - mu) under the decoder's own mu)
+        and the coding indexes, and the lane encoder then codes exactly
+        that pair. The same functions at the same shapes run the same
+        kernels and cuDNN algorithms (set_deterministic), so the real
+        decode reproduces the chain by induction, and `ok` still catches a
+        decoder that diverges. certify=False runs the encoder's own chain
+        (DCAE.encode_device_streams).
+
+        chain: one lane-state set for all slices (DTI2) or one a slice
+        (DTI1). unroll and paired ride the container (they shaped the JAX
+        package's decode program) and change no bit here.
+
+        Two phases, so that a serving loop can overlap batch i's fetch with
+        batch i + 1's device work: _compress_device_dispatch queues
+        everything and never waits for the device; _compress_device_fetch
+        waits once and codes z on the host."""
+        return self._compress_device_fetch(self._compress_device_dispatch(
+            x, lanes, chain, unroll, certify, paired))
+
+    @torch.no_grad()
+    def _compress_device_dispatch(self, x, lanes: Optional[int] = None,
+                                  chain: bool = True, unroll: int = 2,
+                                  certify: bool = True, paired: bool = True
+                                  ) -> dict:
+        """Phase 1 of compress_device: queue this batch's device work
+        (analysis -> replay of the decoder's function -> lane encoder);
+        returns the pending handle _compress_device_fetch completes. Waits
+        for the device nowhere when x already lies on it."""
+        model, st = self.model, self._scale_table
+        x = self._input(x)
+        enc_sf, offs, maxpos, stride = self._enc_luts()
+        B, H, W = x.shape[0], x.shape[1], x.shape[2]
+        yd = self.cfg.y_downsample
+        n_slice = B * (H // yd) * (W // yd) * self.cfg.slice_dim
+        K = int(lanes or _auto_lanes(n_slice))
+        if certify:
+            y, z_symbols, z_hat = model.encode_analysis(x)
+            _, _, idxs, syms = model.decode_device_streams(
+                z_hat, None, None, None, None, None, True, y, None, None,
+                st, unroll, True, chain)
+            res = device_decode.encode_slices_with_patches(
+                syms, idxs, enc_sf, offs, maxpos, stride, K, unroll,
+                self.patch_cap, chain=chain)
+        else:
+            res = model.encode_device_streams(
+                x, st, enc_sf, offs, maxpos, stride, K, unroll,
+                self.patch_cap, chain)
+            z_symbols = res["z_symbols"]
+        # everything the fetch must know before it sizes its copies
+        head = torch.cat([
+            res["n_words"], res["patch_count"],
+            torch.stack([res["escape"], res["patch_overflow"]]).to(
+                torch.int32)])
+        return {"res": res, "head": head, "z_symbols": z_symbols,
+                "cap": n_slice + 1, "K": K, "unroll": int(unroll),
+                "chain": bool(chain), "paired": bool(paired)}
+
+    def _compress_device_fetch(self, pend: dict) -> dict:
+        """Phase 2 of compress_device: wait for the device once (the small
+        head: word and patch counts, the flags), then copy what the
+        container needs (the streams' words, states, patches, z symbols)
+        and code z on the host. Raises rans.EscapeError."""
+        res = pend["res"]
+        S = self.cfg.num_slices
+        head = pend["head"].cpu().numpy()
+        n_words, pcnt = head[:S], head[S:2 * S]
+        if head[2 * S]:
+            raise rans.EscapeError(
+                "symbol outside in-range CDF buckets (device encode)")
+        if head[2 * S + 1]:
+            raise rans.EscapeError(
+                f"escape patch list overflow (> {self.patch_cap}/slice)")
+        words = to_u16(res["words"][:, :max(int(n_words.max()), 1)])
+        n_patch = int(pcnt.max())
+        ppos = res["patch_pos"][:, :n_patch].cpu().numpy()
+        pval = res["patch_val"][:, :n_patch].cpu().numpy()
+        z_sym = pend["z_symbols"].cpu().numpy()
+        return {
+            # emission order reversed is the order the decoder reads
+            "istreams": [words[s, :int(n_words[s])][::-1].tobytes()
+                         for s in range(S)],
+            "states": to_u32(res["states"]),
+            "patches": [(ppos[s, :int(pcnt[s])].copy(),
+                         pval[s, :int(pcnt[s])].copy()) for s in range(S)],
+            # the container's field, as the JAX package's compress_device
+            # writes it: the word-buffer bucket, the decode loop's unroll,
+            # the slot-table layout; and the lane-set layout (DTI1 / DTI2)
+            "bucket": _len_bucket(int(n_words.max()), pend["cap"]),
+            "unroll": pend["unroll"],
+            "paired": pend["paired"],
+            "chained": pend["chain"],
+            "z_strings": self._encode_z(z_sym),
+            "shape": (z_sym.shape[1], z_sym.shape[2]),
+            "lanes": pend["K"],
+        }
+
+    @torch.no_grad()
+    def compress_interleaved(self, x, lanes: Optional[int] = None,
+                             chain: bool = True) -> dict:
+        """Encode into the interleaved profile with the HOST coder (C++
+        encode_interleaved): per-slice interleaved y streams + a classic z
+        stream, bit-identical to compress_device's, clamping and patches
+        included. The dict carries no bucket / unroll / paired (0 in the
+        container). Raises rans.EscapeError on patch-list overflow or a row
+        without in-range buckets.
+
+        Payload overhead against classic: ONE K-uint32 lane-state header
+        for the whole chain (chain=False: one a slice, the DTI1 layout)
+        and 8 bytes per escape patch."""
+        g = self._require_tables().gaussian
+        mode = "fused" if self.encode_mode == "fused" else "split"
+        z_sym, y_sym, y_idx = self._fetch_encode_arrays(
+            self._encode_arrays(x, mode))
+        z_strings = self._encode_z(z_sym)
+        S = y_sym.shape[0]
+        K = int(lanes or _auto_lanes(y_sym[0].size))
+        row_off = np.asarray(g.offset, np.int32)
+        row_mp = np.asarray(g.cdf_length, np.int32) - 2   # in-range buckets
+
+        def clamp_slice(s: int):
+            sym = y_sym[s].reshape(-1).astype(np.int32)
+            idx = y_idx[s].reshape(-1)
+            offs, mp = row_off[idx], row_mp[idx]
+            csym = np.clip(sym - offs, 0, np.maximum(mp - 1, 0)) + offs
+            pos = np.flatnonzero(csym != sym).astype(np.int32)
+            if pos.size > self.patch_cap:
+                raise rans.EscapeError(
+                    f"escape patch list overflow (> {self.patch_cap}"
+                    "/slice)")
+            return csym, idx, (pos, sym[pos])
+
+        clamped = list(self._pool.map(clamp_slice, range(S)))
+        tables = (g.quantized_cdf, g.cdf_length, g.offset)
+        if chain:
+            # sequential by construction: slice s starts from slice s+1's
+            # final states (the decoder threads them forward)
+            streams: list = [None] * S
+            states = None
+            for s in reversed(range(S)):
+                csym, idx, _ = clamped[s]
+                streams[s], states = rans.encode_interleaved(
+                    csym, idx, *tables, K, init_states=states)
+        else:
+            pairs = list(self._pool.map(
+                lambda s: rans.encode_interleaved(
+                    clamped[s][0], clamped[s][1], *tables, K), range(S)))
+            streams = [p[0] for p in pairs]
+            states = np.stack([p[1] for p in pairs])
+        return {
+            "istreams": streams,
+            "states": np.asarray(states),
+            "patches": [c[2] for c in clamped],
+            "chained": bool(chain),
+            "z_strings": z_strings,
+            "shape": (z_sym.shape[1], z_sym.shape[2]),
+            "lanes": K,
+        }
+
+    def decompress_interleaved(self, enc: dict) -> dict:
+        """Decode the interleaved profile: host-decode the (tiny) z stream,
+        pad and upload the streams, then the device does the rest and the
+        host waits for it nowhere: slice contexts + lane decoder
+        (DCAE.decode_device_streams, the function the certified encode
+        replayed), then synthesis. Returns {"x_hat", "ok"}; ok is a ()
+        bool tensor on the device, the lanes checksum (False on a corrupt
+        stream or an encoder / decoder divergence)."""
+        return self._decompress_interleaved_device(
+            *self._interleaved_inputs(enc))
+
+    def _interleaved_inputs(self, enc: dict) -> tuple:
+        """The host part of decompress_interleaved: the arguments of
+        _decompress_interleaved_device, tensors on the device; z_hat is
+        uploaded last."""
+        zh, zw = int(enc["shape"][0]), int(enc["shape"][1])
+        streams = enc["istreams"]
+        S = len(streams)
+        states = np.array(enc["states"], np.uint32)    # a writable copy
+        n_words = np.array([len(b) // 2 for b in streams], np.int32)
+        words = np.zeros((S, max(int(n_words.max()), 1)), np.uint16)
+        for s, b in enumerate(streams):
+            words[s, :n_words[s]] = np.frombuffer(b, np.uint16)
+        # the container's field: validated, otherwise unused (eager code
+        # has no program shape to reproduce, and the slot-table layout
+        # changes no symbol)
+        unroll = int(enc.get("unroll") or 2)
+        if unroll not in (1, 2, 4, 8, 16, 32, 64):
+            raise ValueError(f"interleaved stream: unroll {unroll}")
+        # a 1-D state vector IS the chain header (the dict's flag wins)
+        chained = bool(enc.get("chained", states.ndim == 1))
+        if states.shape != ((int(enc["lanes"]),) if chained
+                            else (S, int(enc["lanes"]))):
+            raise ValueError(f"interleaved stream: states {states.shape} "
+                             f"for {enc['lanes']} lanes, chained {chained}")
+        # escape patches, padded to the longest list; padding rows hold a
+        # position past the slice's symbols, which the scatter drops
+        r = self.cfg.hyper_ratio
+        n_flat = (len(enc["z_strings"]) * (zh * r) * (zw * r)
+                  * self.cfg.slice_dim)
+        patches = enc.get("patches") or []
+        P = max([len(p[0]) for p in patches], default=0)
+        ppos = np.full((S, P), n_flat, np.int32)
+        pval = np.zeros((S, P), np.int32)
+        for s, (pos, val) in enumerate(patches):
+            ppos[s, :len(pos)] = pos
+            pval[s, :len(val)] = val
+        z_hat = self._decode_z_hat(enc["z_strings"], zh, zw)
+        luts = self._slot_luts()
+        dev = self.device
+        up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return (up(words.view(np.int16)), up(n_words),
+                up(states.view(np.int32)), up(ppos), up(pval), luts, unroll,
+                chained, up(z_hat))
+
+    @torch.no_grad()
+    def _decompress_interleaved_device(self, words, n_words, states, ppos,
+                                       pval, luts, unroll: int,
+                                       chained: bool, z_hat) -> dict:
+        """The device part of decompress_interleaved: queues everything and
+        waits for the device nowhere."""
+        y_hat, ok, _, _ = self.model.decode_device_streams(
+            z_hat, words, n_words, states, ppos, pval, False, None,
+            luts[0], luts[1], self._scale_table, unroll, True, chained)
+        return {"x_hat": self.model.decode_synthesis(y_hat), "ok": ok}
+
+    # ------------------------------------------------------- serving loop --
+
+    def _start_encode_producer(self, batches: List, encode_fn, maxsize: int,
+                               dispatch_fn=None, fetch_fn=None,
+                               dispatch_ahead: int = 1):
+        """The serving loops' producer: a daemon thread encodes the batches
+        into a bounded queue, preparing the next batch's input (its upload)
+        before this batch's fetch blocks. With (dispatch_fn, fetch_fn)
+        instead of encode_fn it dispatches ahead: batch i + D's device work
+        is queued BEFORE batch i's fetch waits, so the fetch and the host
+        coding hide behind the next batches' device time (D =
+        dispatch_ahead, default 1: double buffering; deeper holds D
+        batches of device buffers in flight).
+        Returns (queue, dead_event, thread, err_list); the consumer must
+        `dead.set(); thread.join()` in a finally block, so that a consumer
+        failure never leaves the producer blocked on the full queue, and
+        re-raise err_list[0] if present. A None in the queue marks a
+        producer failure."""
+        q: "queue.Queue" = queue.Queue(maxsize=maxsize)
+        err: List[BaseException] = []
+        dead = threading.Event()   # the consumer died: stop producing
+
+        def put(item) -> bool:
+            while not dead.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                depth = max(1, int(dispatch_ahead))
+                nxt = None
+                pend: deque = deque()
+                for i, x in enumerate(batches):
+                    cur = nxt if nxt is not None else self._input(x)
+                    nxt = (self._input(batches[i + 1])
+                           if i + 1 < len(batches) else None)
+                    if dispatch_fn is None:
+                        if not put(encode_fn(cur)):
+                            return
+                        continue
+                    pend.append((dispatch_fn(cur), cur))
+                    if len(pend) > depth and \
+                            not put(fetch_fn(*pend.popleft())):
+                        return
+                while pend:
+                    if not put(fetch_fn(*pend.popleft())):
+                        return
+            except BaseException as e:   # surfaces in the consumer
+                err.append(e)
+                put(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        return q, dead, t, err
+
+    def encdec_pipeline_interleaved(self, batches: Sequence,
+                                    inflight: int = 3,
+                                    dispatch_ahead: int = 1, **encode_kw
+                                    ) -> List[dict]:
+        """Serving loop of the device-coding profile: a producer thread
+        encodes (compress_device's two phases, dispatching ahead), while
+        the consumer merely DISPATCHES each batch's decode: the device's
+        queue is the pipeline, so the encode of batch i + 1 overlaps the
+        decode of batch i. `inflight` bounds the decodes nobody has waited
+        for (device-memory backpressure); encode_kw goes to
+        _compress_device_dispatch.
+
+        A batch whose symbols do not fit the profile (rans.EscapeError:
+        untrained weights, extreme inputs) is coded by the classic codec
+        instead and tagged: every batch gets a result, in order.
+        Returns per-batch {"x_hat", "ok", "shape", "profile"}, profile
+        "interleaved" or "classic"."""
+        batches = list(batches)
+
+        def dispatch(x):     # never waits for the device: cannot escape
+            return self._compress_device_dispatch(x, **encode_kw)
+
+        def fetch(d, x):
+            try:
+                return self._compress_device_fetch(d)
+            except rans.EscapeError:
+                return {"_classic": self.compress(x)}
+
+        q, dead, t, err = self._start_encode_producer(
+            batches, None, maxsize=max(1, inflight), dispatch_fn=dispatch,
+            fetch_fn=fetch, dispatch_ahead=dispatch_ahead)
+        results: List[dict] = []
+        pending: deque = deque()
+        on_card = self.device.type == "cuda"
+
+        def drain(item):
+            d, done = item
+            if done is not None:
+                done.synchronize()
+            results.append(d)
+
+        try:
+            for _ in batches:
+                enc = q.get()
+                if enc is None:
+                    break
+                if "_classic" in enc:
+                    # the classic decode waits for the device at every
+                    # slice: this batch alone loses the overlap
+                    c = enc["_classic"]
+                    d = self.decompress(c["strings"], c["shape"])
+                    d = {"x_hat": d["x_hat"], "ok": True,
+                         "shape": c["shape"], "profile": "classic"}
+                else:
+                    d = {**self.decompress_interleaved(enc),
+                         "shape": enc["shape"], "profile": "interleaved"}
+                done = None
+                if on_card:
+                    done = torch.cuda.Event()
+                    done.record()
+                pending.append((d, done))
+                if len(pending) > inflight:
+                    drain(pending.popleft())
+            while pending:
+                drain(pending.popleft())
+        finally:
+            dead.set()
+            t.join()
+        if err:
+            raise err[0]
+        return results
 
     # ----------------------------------------------------- certification --
 

@@ -5,8 +5,10 @@
 plus the pieces the real codec drives: encode_analysis, encode_rest /
 encode_arrays (the split and fused encoders), decode_start / decode_step /
 decode_end (the per-slice decoder, which the staged encoder replays),
-decode_all (the shipped-index decoder) and latent_decompress (the latent
-hand-off). Tensors are NHWC, as in the JAX package.
+decode_all (the shipped-index decoder), latent_decompress (the latent
+hand-off) and encode_device_streams / decode_device_streams (the
+interleaved profile: the y streams are entropy-coded on the device).
+Tensors are NHWC, as in the JAX package.
 
 Precision split: `dtype` (bf16 on the card) applies only to the one-sided
 transforms g_a / h_a (encoder) and g_s (decoder); their outputs are cast to
@@ -259,6 +261,136 @@ class DCAE(nn.Module):
     def decode_synthesis(self, y_hat: torch.Tensor) -> torch.Tensor:
         """g_s, clipped to [0, 1]."""
         return torch.clamp(self._run(self.g_s, y_hat), 0.0, 1.0)
+
+    def encode_device_streams(self, x: torch.Tensor, scale_table, enc_sf,
+                              enc_offsets, enc_maxpos, stride: int,
+                              lanes: int, unroll: int = 1,
+                              patch_cap: int = 128, chain: bool = False
+                              ) -> dict:
+        """The whole ENCODE on the device, entropy coding included:
+        encode_arrays (analysis, every slice's symbols and indexes), then
+        the K-lane interleaved rANS encode of every slice
+        (entropy/device_decode.py encode_slices_with_patches, streams
+        bit-identical to the C++ encoder's). The host then fetches streams
+        of entropy size instead of raw symbols. Queues device work only.
+
+        Out-of-table symbols (Gaussian-tail outliers that the classic
+        format bypass-codes) do not invalidate the profile: the STREAM
+        carries the symbol clamped into its row's in-range buckets, and a
+        per-slice patch list (flat position + true value, <= patch_cap
+        entries) rides alongside, so the decoder restores the exact symbol
+        right after entropy decode and the y_hat chain stays that of the
+        classic path. patch_count > patch_cap sets patch_overflow; escape
+        fires only for rows with no in-range bucket at all.
+
+        Returns encode_slices_with_patches' tensors plus "y_symbols" (the
+        true symbols), "z_symbols" and "z_hat". The fetch tier narrow_z
+        (an int8 copy of the z symbols for a slow host link) is left out:
+        it changes no output."""
+        from dcae_tpu_torch.entropy.device_decode import \
+            encode_slices_with_patches
+
+        out = self.encode_arrays(x, scale_table)
+        res = encode_slices_with_patches(
+            out["y_symbols"], out["y_indexes"], enc_sf, enc_offsets,
+            enc_maxpos, stride, lanes, unroll, patch_cap, chain=chain)
+        res["y_symbols"] = out["y_symbols"]
+        res["z_symbols"] = out["z_symbols"]
+        medians = self.eb_medians().reshape(1, 1, 1, -1)
+        res["z_hat"] = out["z_symbols"].to(torch.float32) + medians
+        return res
+
+    def decode_device_streams(self, z_hat: torch.Tensor, words, n_words,
+                              states, patch_pos, patch_val, override: bool,
+                              true_y, lut_sym, lut_sf, scale_table,
+                              unroll: int = 1, paired: bool = False,
+                              chained: bool = False):
+        """Slice contexts + entropy decode of the K-lane interleaved rANS
+        streams ON THE DEVICE (entropy/device_decode.py): the channel-AR
+        chain makes no round trip to the host and never waits for the
+        device. Synthesis is NOT in this function (decode_synthesis comes
+        right after): the certified ENCODE replays this very function and
+        must not pay for g_s.
+
+        words: (S, W) uint16 bits, per-slice streams (padded); n_words:
+        (S,) int32 true word counts; states: (S, K) uint32 bits decode-start
+        lane states, or (K,) when chained; patch_pos / patch_val: (S, P)
+        int32 escape patches (see encode_device_streams): true symbol
+        values scattered over the clamped stream symbols right after
+        entropy decode; rows whose position is out of range are dropped.
+
+        override / true_y (bool / (B, yh, yw, M) f32) exist for the
+        ENCODER: the sigma -> index chain is only bit-stable when the same
+        functions run at the same shapes with the same kernels, so the
+        encoder teacher-forces THIS function with the raw latent y
+        (override=True: each slice's symbols are round(y_i - mu_i), and the
+        y_hat chain reads them; no stream is decoded and no decode kernel
+        is launched), then encodes the streams under the (indexes, symbols)
+        returned here. The real decode (override=False) then reproduces
+        those indexes as long as the decoded symbols equal the returned
+        ones, which holds slice by slice by induction. Decoders pass
+        override=False and true_y=None.
+
+        chained=True: `states` is ONE (K,) vector spanning all slices;
+        slice i starts from slice i-1's final states, and the base-state
+        checksum applies once, after the last slice.
+
+        Returns (y_hat, ok, idxs, syms): ok is a () bool tensor on the
+        device, the all-slices checksum (every stream consumed exactly and
+        every lane back at 2^16); idxs (S, B, yh, yw, sd) int8 and syms
+        (same, int32) are the per-slice chains the certified encoder
+        codes."""
+        from dcae_tpu_torch.entropy.device_decode import (
+            RANS_L16, decode_interleaved, decode_interleaved_chain)
+        from dcae_tpu_torch.ops.kernels.rans_lanes import bool_all, u32_bits
+
+        cfg = self.cfg
+        sd = cfg.slice_dim
+        latent_scales, latent_means = self.hyper_synthesis(z_hat)
+        dev = z_hat.device
+        y_hat = latent_scales[..., :0]
+        ok = torch.ones((), dtype=torch.bool, device=dev)
+        if not override:
+            states = u32_bits(states, dev)
+            K = states.shape[-1]
+        chain_states = states if chained else None      # (K,), threaded
+        idx_list, sym_list = [], []
+        for i in range(cfg.num_slices):
+            support, mu, indexes = self._ctx_and_indexes(
+                i, latent_scales, latent_means, y_hat, scale_table)
+            idx_list.append(indexes.to(torch.int8))
+            if override:
+                y_slice = true_y[..., i * sd:(i + 1) * sd].to(torch.float32)
+                sym = torch.round(y_slice - mu).to(torch.int32)
+            else:
+                n_i = indexes.numel()
+                if chained:
+                    flat, ok_i, chain_states = decode_interleaved_chain(
+                        words[i], n_words[i], chain_states,
+                        indexes.reshape(-1), lut_sym, lut_sf, K, unroll,
+                        paired)
+                else:
+                    flat, ok_i = decode_interleaved(
+                        words[i], n_words[i], states[i],
+                        indexes.reshape(-1), lut_sym, lut_sf, K, unroll,
+                        paired)
+                ok = ok & ok_i
+                # scatter the patches; a position outside [0, n) lands in a
+                # spare slot that is cut off
+                pos = patch_pos[i].to(torch.int64)
+                pos = torch.where((pos >= 0) & (pos < n_i), pos,
+                                  torch.full_like(pos, n_i))
+                flat = torch.cat([flat, flat.new_zeros(1)]).scatter_(
+                    0, pos, patch_val[i].to(torch.int32))[:n_i]
+                sym = flat.reshape(indexes.shape)
+            sym_list.append(sym)
+            y_hat = torch.cat(
+                [y_hat, self._apply_symbols(i, support, mu, sym)], dim=-1)
+        if chained and not override:
+            # the checksum sits at the end of the chain: every lane must be
+            # back at the 2^16 base after the LAST slice
+            ok = ok & bool_all(chain_states == RANS_L16)
+        return y_hat, ok, torch.stack(idx_list), torch.stack(sym_list)
 
     def decode_all(self, z_hat: torch.Tensor, symbols: torch.Tensor
                    ) -> torch.Tensor:

@@ -22,7 +22,7 @@ from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu, supported
 from dcae_tpu_torch.ops.kernels.wmsa_attention import wmsa_attention
 from dcae_tpu_torch.ops.kernels.wmsa_block import (WINDOW,
                                                    relative_position_bias,
-                                                   shifted_window_mask,
+                                                   shifted_window_mask_on,
                                                    wmsa_block)
 from dcae_tpu_torch.ops.layers import Conv, Deconv, Dense, LayerNorm, gelu
 
@@ -113,8 +113,7 @@ class WMSA(nn.Module):
         sim = sim + relative_position_bias(
             self.relative_position_params.float(), w)[None, :, None]
         if self.shifted:
-            mask = torch.as_tensor(shifted_window_mask(nh, nw, w),
-                                   device=x.device)
+            mask = shifted_window_mask_on(nh, nw, w, x.device)
             sim = sim.masked_fill(mask[None, None], float("-inf"))
         out = torch.matmul(torch.softmax(sim, dim=-1).to(v.dtype), v)
         out = self.linear(out.permute(0, 2, 3, 1, 4).reshape(

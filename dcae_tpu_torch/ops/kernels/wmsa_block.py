@@ -35,9 +35,18 @@ def relative_position_bias(rel: torch.Tensor, window: int = WINDOW
                            ) -> torch.Tensor:
     """(heads, P, P) bias: table[h, dy + w - 1, dx + w - 1] for query token
     (ri, ci) and key token (rj, cj), dy = ri - rj, dx = ci - cj."""
+    iy, ix = _bias_index(window, rel.device)
+    return rel[:, iy, ix]
+
+
+@functools.lru_cache(maxsize=16)
+def _bias_index(window: int, device: torch.device):
+    """The (P, P) row and column indexes of relative_position_bias, kept on
+    `device`: only a first call uploads them (and waits for the device)."""
     coords = np.array([[i, j] for i in range(window) for j in range(window)])
     idx = coords[:, None, :] - coords[None, :, :] + window - 1
-    return rel[:, torch.as_tensor(idx[..., 0]), torch.as_tensor(idx[..., 1])]
+    return (torch.as_tensor(idx[..., 0], device=device),
+            torch.as_tensor(idx[..., 1], device=device))
 
 
 def shifted_window_mask(nh: int, nw: int, window: int = WINDOW
@@ -54,6 +63,14 @@ def shifted_window_mask(nh: int, nw: int, window: int = WINDOW
     mask[-1, :] |= rows
     mask[:, -1] |= cols
     return mask.reshape(nh * nw, window * window, window * window)
+
+
+@functools.lru_cache(maxsize=64)
+def shifted_window_mask_on(nh: int, nw: int, window: int,
+                           device: torch.device) -> torch.Tensor:
+    """shifted_window_mask as a tensor kept on `device` (uploaded once)."""
+    return torch.as_tensor(shifted_window_mask(nh, nw, window),
+                           device=device)
 
 
 def window_attention(xs, wqkv, bqkv, wproj, bproj, rel, *, heads: int,
@@ -75,7 +92,7 @@ def window_attention(xs, wqkv, bqkv, wproj, bproj, rel, *, heads: int,
     sim = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
     sim = sim + relative_position_bias(f(rel))[None, :, None]
     if shifted:
-        mask = torch.as_tensor(shifted_window_mask(nh, nw), device=xs.device)
+        mask = shifted_window_mask_on(nh, nw, w, xs.device)
         sim = sim.masked_fill(mask[None, None], float("-inf"))
     probs = rnd(torch.softmax(sim, dim=-1))
     o = rnd(torch.matmul(probs, v).permute(0, 2, 3, 1, 4).reshape(

@@ -256,3 +256,202 @@ def test_conv_glu_bf16_bands(card, band_rows, monkeypatch):
     got = cg.conv_glu(x, *args)
     assert _rel_err(got, cg.conv_glu_ref(x, *args)) <= 1e-2
     assert torch.equal(got, default)
+
+
+# ------------------------------------------------------ the lane coders --
+
+def _lane_tables(adversarial: bool = False):
+    """CDF rows for the lane-coder tests: nine random rows, or six rows of
+    one dominant bucket among width-1 buckets (the state division's
+    extremes)."""
+    from dcae_tpu_torch.entropy import rans
+
+    rng = np.random.default_rng(7)
+    rows, maxlen = (6, 34) if adversarial else (9, 60)
+    cdfs = np.zeros((rows, maxlen + 2), np.int32)
+    lengths = np.zeros(rows, np.int32)
+    offsets = rng.integers(-25, 6, rows).astype(np.int32)
+    for r in range(rows):
+        n = int(rng.integers(3, maxlen))
+        if adversarial:
+            counts = np.ones(n, np.int64)
+            counts[int(rng.integers(0, n))] = (1 << 16) - n + 1
+            cdf = np.concatenate([[0], np.cumsum(counts)])
+        else:
+            pmf = rng.uniform(0.001, 1, n).astype(np.float32)
+            pmf /= pmf.sum() * 1.0005
+            cdf = rans.pmf_to_quantized_cdf(
+                np.concatenate([pmf, [1 - pmf.sum()]]))
+        cdfs[r, :len(cdf)] = cdf
+        lengths[r] = len(cdf)
+    return cdfs, lengths, offsets
+
+
+def _lane_draw(tables, n, seed):
+    cdfs, lengths, offsets = tables
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, cdfs.shape[0], n).astype(np.int32)
+    val = (rng.random(n) * (lengths[idx] - 2)).astype(np.int32)
+    return val + offsets[idx], idx
+
+
+LANE_CASES = [(50_000, 1024), (49_152, 512), (777, 16), (64, 64), (5, 8),
+              (1, 1), (3000, 100), (70_000, 2048), (9000, 1500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("n,K", LANE_CASES)
+def test_rans_lanes_encode_kernel(card, n, K, adversarial):
+    """Two chained slices: the kernel's words, counts, states and escape
+    flag equal the plain version's and the C++ host coder's stream, for
+    one lane a thread (K <= 1024) and for the wide kernel."""
+    from dcae_tpu_torch.entropy import device_decode as dd
+    from dcae_tpu_torch.entropy import rans
+    from dcae_tpu_torch.ops.kernels import rans_lanes as rl
+
+    tables = _lane_tables(adversarial)
+    enc_sf, offs, maxpos, stride = dd.enc_tables_to_device(
+        dd.build_enc_tables(*tables), "cuda")
+    state_k = state_p = host_state = None
+    for s in (1, 0):
+        sym, idx = _lane_draw(tables, n, seed=31 * n + s)
+        stream, host_state = rans.encode_interleaved(
+            sym, idx, *tables, K, init_states=host_state)
+        pos = torch.from_numpy(sym - tables[2][idx]).cuda()
+        idx_d = torch.from_numpy(idx).cuda()
+        ok = torch.ones(n, dtype=torch.bool, device="cuda")
+        before = rl.rans_lanes_encode.launches
+        w, nw, state_k, esc = rl.rans_lanes_encode(pos, idx_d, ok, enc_sf,
+                                                   stride, K, state_k)
+        assert rl.rans_lanes_encode.launches == before + 1
+        w_p, nw_p, state_p, esc_p = rl.rans_lanes_encode_ref(
+            pos, idx_d, ok, enc_sf, stride, K, state_p)
+        assert torch.equal(w, w_p) and torch.equal(nw, nw_p)
+        assert torch.equal(state_k, state_p)
+        assert not bool(esc) and not bool(esc_p)
+        assert rl.to_u16(w)[:int(nw)][::-1].tobytes() == stream
+        assert np.array_equal(rl.to_u32(state_k), host_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("n,K", LANE_CASES)
+def test_rans_lanes_decode_kernel(card, n, K, paired):
+    """Two chained slices of the host coder's streams, padded: symbols, ok
+    and final states equal the plain version's, the symbols are the
+    encoder's, and the chain ends at the 2^16 base."""
+    from dcae_tpu_torch.entropy import device_decode as dd
+    from dcae_tpu_torch.entropy import rans
+    from dcae_tpu_torch.ops.kernels import rans_lanes as rl
+
+    tables = _lane_tables()
+    luts = dd.slot_tables_to_device(
+        dd.build_slot_tables(*tables, paired=paired), "cuda")
+    data = [_lane_draw(tables, n, seed=17 * n + s) for s in range(2)]
+    streams, st = [None, None], None
+    for s in (1, 0):
+        streams[s], st = rans.encode_interleaved(*data[s], *tables, K,
+                                                 init_states=st)
+    state_k = state_p = rl.u32_bits(st, "cuda")
+    for s in range(2):
+        words = np.frombuffer(streams[s], np.uint16)
+        padded = rl.u16_bits(np.concatenate(
+            [words, np.full(77, 0xABCD, np.uint16)]), "cuda")
+        nw = torch.tensor(len(words), dtype=torch.int32).cuda()
+        idx_d = torch.from_numpy(data[s][1]).cuda()
+        before = rl.rans_lanes_decode.launches
+        sym_k, ok_k, state_k = rl.rans_lanes_decode(
+            padded, nw, state_k, idx_d, *luts, K, paired, s == 1)
+        assert rl.rans_lanes_decode.launches == before + 1
+        sym_p, ok_p, state_p = rl.rans_lanes_decode_ref(
+            padded, nw, state_p, idx_d, *luts, K, paired, s == 1)
+        assert bool(ok_k) and bool(ok_p)
+        assert torch.equal(sym_k, sym_p) and torch.equal(state_k, state_p)
+        assert np.array_equal(sym_k.cpu().numpy(), data[s][0])
+    assert bool((state_k == rl.RANS_L16).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 2048])
+def test_rans_lanes_kernels_flag_faults(card, K):
+    """A flipped word, a bumped state, a short stream and a coding index
+    outside the table give ok = false and no fault; a symbol marked out of
+    range or a zero-width bucket raises the encoder's escape flag."""
+    from dcae_tpu_torch.entropy import device_decode as dd
+    from dcae_tpu_torch.entropy import rans
+    from dcae_tpu_torch.ops.kernels import rans_lanes as rl
+
+    tables = _lane_tables()
+    n = 30_000
+    sym, idx = _lane_draw(tables, n, seed=4)
+    stream, states = rans.encode_interleaved(sym, idx, *tables, K)
+    luts = dd.slot_tables_to_device(dd.build_slot_tables(*tables), "cuda")
+    words = np.frombuffer(stream, np.uint16)
+    idx_d = torch.from_numpy(idx).cuda()
+
+    def ok(words, n_words, states, idx_d=idx_d):
+        res = rl.rans_lanes_decode(
+            rl.u16_bits(words, "cuda"),
+            torch.tensor(n_words, dtype=torch.int32).cuda(),
+            rl.u32_bits(states, "cuda"), idx_d, *luts, K)
+        torch.cuda.synchronize()
+        return bool(res[1])
+
+    assert ok(words, len(words), states)
+    flipped = words.copy()
+    flipped[50] ^= 0xFFFF
+    assert not ok(flipped, len(words), states)
+    bumped = states.copy()
+    bumped[0] += 1
+    assert not ok(words, len(words), bumped)
+    assert not ok(words[:-3], len(words) - 3, states)
+    assert not ok(words, len(words) + 5, states)       # count past the buffer
+    wild = idx_d.clone()
+    wild[7] = 1000
+    assert not ok(words, len(words), states, wild)
+
+    cdfs, lengths, offsets = (a.copy() for a in tables)
+    r = idx[123]
+    cdfs[r, 2] = cdfs[r, 1]                            # bucket 1 has width 0
+    tabs = dd.enc_tables_to_device(
+        dd.build_enc_tables(cdfs, lengths, offsets), "cuda")
+    pos = torch.from_numpy(sym - offsets[idx]).cuda()
+    in_range = torch.ones(n, dtype=torch.bool, device="cuda")
+    good = dd.enc_tables_to_device(dd.build_enc_tables(*tables), "cuda")
+    assert not bool(rl.rans_lanes_encode(pos, idx_d, in_range, good[0],
+                                         good[3], K)[3])
+    marked = in_range.clone()
+    marked[n - 1] = False
+    zero_width = pos.clone()
+    zero_width[123] = 1
+    got = rl.rans_lanes_encode(zero_width, idx_d, in_range, tabs[0],
+                               tabs[3], K)
+    want = rl.rans_lanes_encode_ref(zero_width, idx_d, in_range, tabs[0],
+                                    tabs[3], K)
+    assert bool(got[3]) and bool(want[3])
+    assert bool(rl.rans_lanes_encode(pos, idx_d, marked, good[0], good[3],
+                                     K)[3])
+
+
+@pytest.mark.cuda
+def test_rans_lanes_wrappers_refuse_wrong_operands(card):
+    from dcae_tpu_torch.ops.kernels import rans_lanes as rl
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    idx = torch.zeros(8, **i32)
+    with pytest.raises(TypeError, match="dtype"):
+        rl.rans_lanes_encode(idx.long(), idx, idx.bool(), idx, 1, 4)
+    with pytest.raises(ValueError, match="lanes"):
+        rl.rans_lanes_encode(idx, idx, idx.bool(), idx, 1, 1 << 16)
+    with pytest.raises(ValueError, match="states"):
+        rl.rans_lanes_decode(torch.zeros(4, dtype=torch.int16,
+                                         device="cuda"),
+                             torch.zeros((), **i32), torch.zeros(3, **i32),
+                             idx, torch.zeros(1 << 16, **i32),
+                             torch.zeros(1 << 16, **i32), 4)
+    with pytest.raises(ValueError, match="operands on"):
+        rl.rans_lanes_decode(torch.zeros(4, dtype=torch.int16),
+                             torch.zeros((), **i32), torch.zeros(4, **i32),
+                             idx, torch.zeros(1 << 16, **i32),
+                             torch.zeros(1 << 16, **i32), 4)
