@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, as the checks run it
     python3 chip_smoke.py --phase kernels
+    python3 chip_smoke.py --phase train
 
 Phases, in order:
   build      nvcc builds every kernel of csrc/ from this checkout (one
@@ -13,6 +14,12 @@ Phases, in order:
              wmsa_attention, an SDPA call as yardstick; conv_glu must be
              bitwise repeatable in both dtypes. The two lane-coder kernels
              (rans_lanes_decode / rans_lanes_encode) code 5 chained slices
+             The three wrappers' gradient Functions follow, in f32 at the
+             training shapes (batch 8 of 256x256): forward against the plain
+             version, gradients through the Function against autograd
+             through the plain version, forward and backward times (and the
+             gradients of one bf16 call a kernel).
+             The two lane-coder kernels code 5 chained slices
              of 196,608 symbols on 512 lanes under the codec's Gaussian
              bank and must equal their plain versions AND the C++ host
              coder exactly; a flipped word or a bumped state must give
@@ -45,9 +52,23 @@ Phases, in order:
                         staged part.
              Every path runs with the launch counters set to 0 just before
              it and read just after; each must show its kernels.
+  train      the RD trainer's own functions (make_optimizer,
+             create_train_state, make_train_step) on the full-width f32
+             DCAEConfig(), seeded weights, batch 8 of 256x256 crops, lambda
+             0.0483, mse: every parameter's gradient at step 1 finite and
+             nonzero, the quantiles' gradient the aux loss's alone, 3 warm +
+             5 timed steps (host clock, peak memory), 3 steps split into
+             forward / backward / optimizer by CUDA events with the share of
+             the three recompute backwards, 3 steps with TF32 allowed (what
+             full-f32 products cost), 2 steps with precision_reg, 2
+             steps of the attention-only configuration, the launch counts of
+             each; the loss must be finite at every step and lower after
+             than before; a tiny step on the card must equal the same step
+             on the CPU; then one tiny run_training epoch on generated PNGs
+             with a checkpoint reload.
   profile    (only with --phase profile) device time of one slice run by
              kernel, from torch.profiler: staged, shipped-index and
-             interleaved pairs.
+             interleaved pairs; then of one full-width training step.
   bands      (only with --phase bands) the bf16 conv_glu call at the path's
              shape walked in bands of 12, 24 and 48 MiB of [g | v], and
              what the host spends to enqueue one call.
@@ -92,6 +113,23 @@ CONV_GLU_CASES = [
     ("DCA GLU", 32, 48, 640, 1280, "float32", 10),
 ]
 BATCH = 2
+# the training path: f32, batch 8 of 256x256 crops; launches a step forward
+TRAIN_BATCH = 8
+WMSA_TRAIN_CASES = [
+    ("stage1 W", 128, 128, 96, 12, False, 2),
+    ("stage2 W", 64, 64, 144, 9, False, 2),
+    ("stage2 SW", 64, 64, 144, 9, True, 2),
+    ("stage3 W", 32, 32, 256, 8, False, 12),
+    ("stage3 SW", 32, 32, 256, 8, True, 12),
+]
+CONV_GLU_TRAIN_CASES = [
+    ("stage3 GLU", 32, 32, 256, 512, 24),
+    ("DCA GLU", 16, 16, 640, 1280, 5),
+]
+# max|grad - plain grad| / max|plain grad| of every operand: f32 both run
+# the same f32 backward on forwards 1e-6 apart; bf16 differentiates the
+# plain version without its bf16 rounding points
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # the interleaved profile at batch 2 of 768x512: symbols a slice
 # (2 x 48 x 32 x 64), slices, and the lanes _auto_lanes picks for them
 RANS_N, RANS_SLICES, RANS_LANES = 196_608, 5, 512
@@ -154,11 +192,11 @@ def _uniform(gen, shape, bound_, device):
     return ((torch.rand(shape, generator=gen) * 2 - 1) * bound_).to(device)
 
 
-def wmsa_inputs(H, W, C, heads, dtype, gen):
+def wmsa_inputs(H, W, C, heads, dtype, gen, batch=BATCH):
     import torch
 
     dev = "cuda"
-    x = torch.randn((BATCH, H, W, C), generator=gen).to(dev)
+    x = torch.randn((batch, H, W, C), generator=gen).to(dev)
     p = [1 + 0.1 * torch.randn((C,), generator=gen),     # ln_w
          0.1 * torch.randn((C,), generator=gen),         # ln_b
          1 + 0.1 * torch.randn((C,), generator=gen)]     # rs
@@ -170,11 +208,11 @@ def wmsa_inputs(H, W, C, heads, dtype, gen):
     return x.to(dtype), [t.to(dtype).contiguous() for t in p]
 
 
-def conv_glu_inputs(H, W, C, hidden, dtype, gen):
+def conv_glu_inputs(H, W, C, hidden, dtype, gen, batch=BATCH):
     import torch
 
     dev = "cuda"
-    x = torch.randn((BATCH, H, W, C), generator=gen).to(dev)
+    x = torch.randn((batch, H, W, C), generator=gen).to(dev)
     b1, b2 = C ** -0.5, hidden ** -0.5
     p = [(1 + 0.1 * torch.randn((C,), generator=gen)).to(dev),
          (0.1 * torch.randn((C,), generator=gen)).to(dev),
@@ -302,8 +340,149 @@ def kernel_phase(gen) -> dict:
            if not r["ok"]]
     if bad:
         fail(f"kernel checks: {bad}")
+    train_kernel_rows(results, gen)
     results.update(rans_phase())
     return results
+
+
+def time_backward_ms(forward, grad_out, iters: int = 3) -> float:
+    """Mean device time of out.backward(grad_out) alone, over `iters`
+    fresh forwards (CUDA events around each backward)."""
+    import torch
+
+    forward().backward(grad_out)                         # warm-up
+    total = 0.0
+    for _ in range(iters):
+        out = forward()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.backward(grad_out)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def grad_check(fn, ref, x, p, kw, gen) -> tuple:
+    """(largest relative gradient error over the operands, the cotangent,
+    the leaves): gradients of fn through its Function against autograd
+    through the plain version, every operand a leaf."""
+    import torch
+
+    g = torch.randn(x.shape, generator=gen).to(x.device, x.dtype)
+    a_fn = [t.detach().clone().requires_grad_(True) for t in (x, *p)]
+    a_ref = [t.detach().clone().requires_grad_(True) for t in (x, *p)]
+    out = fn(*a_fn, **kw)
+    if out.grad_fn is None:
+        fail("a wrapper returned no grad_fn for operands that require grad")
+    out.backward(g)
+    ref(*a_ref, **kw).backward(g)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for got, want in zip(a_fn, a_ref):
+        if got.grad is None or got.grad.dtype != got.dtype or \
+                not bool(torch.isfinite(got.grad.float()).all()):
+            fail("a gradient is missing, of the wrong dtype or not finite")
+        worst = max(worst, rel_err(got.grad, want.grad))
+    return worst, g, a_fn
+
+
+def train_kernel_rows(results: dict, gen) -> None:
+    """The three wrappers in f32 at the training shapes: forward against
+    the plain version (TOL), gradients through the autograd Function
+    against autograd through the plain version (GRAD_TOL), forward and
+    backward times, the f32 bound; and the gradients of one bf16 call a
+    kernel. Rows join `results` with train = True."""
+    import torch
+    from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu, conv_glu_ref
+    from dcae_tpu_torch.ops.kernels.wmsa_attention import (
+        wmsa_attention, wmsa_attention_ref)
+    from dcae_tpu_torch.ops.kernels.wmsa_block import (wmsa_block,
+                                                       wmsa_block_ref)
+
+    dtype = "float32"
+
+    def wmsa_case(H, W, C, heads, skip):
+        def inputs(d):
+            x, p = wmsa_inputs(H, W, C, heads, d, gen, TRAIN_BATCH)
+            return x, p[skip:]
+        return inputs
+
+    def glu_case(H, W, C, hidden):
+        return lambda d: conv_glu_inputs(H, W, C, hidden, d, gen,
+                                         TRAIN_BATCH)
+
+    # (kernel, wrapper, plain version, label, launches a step, inputs of a
+    # dtype, static arguments, operations)
+    cases = []
+    for name, fn, ref, skip in (
+            ("wmsa_block", wmsa_block, wmsa_block_ref, 0),
+            ("wmsa_attention", wmsa_attention, wmsa_attention_ref, 3)):
+        for label, H, W, C, heads, shifted, per_step in WMSA_TRAIN_CASES:
+            cases.append((name, fn, ref, f"train {label}", per_step,
+                          wmsa_case(H, W, C, heads, skip),
+                          dict(heads=heads, shifted=shifted),
+                          TRAIN_BATCH * H * W * (8 * C * C + 4 * 64 * C)))
+    for label, H, W, C, hidden, per_step in CONV_GLU_TRAIN_CASES:
+        cases.append(("conv_glu", conv_glu, conv_glu_ref, f"train {label}",
+                      per_step, glu_case(H, W, C, hidden), {},
+                      TRAIN_BATCH * H * W * (6 * C * hidden + 18 * hidden)))
+    # the one shape a kernel whose gradients are also held in bf16
+    bf16_too = {"wmsa_block": "train stage3 SW",
+                "wmsa_attention": "train stage3 SW",
+                "conv_glu": "train stage3 GLU"}
+    bad = []
+    for name, fn, ref, label, per_step, inputs, kw, flops in cases:
+        x, p = inputs(torch.float32)
+        with torch.no_grad():
+            got, want = fn(x, *p, **kw), ref(x, *p, **kw)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            abs_err = float((got - want).abs().max())
+            ms = time_ms(lambda: fn(x, *p, **kw))
+            plain_ms = time_ms(lambda: ref(x, *p, **kw), iters=2, warmup=1)
+        del got, want
+        g_err, g, leaves = grad_check(fn, ref, x, p, kw, gen)
+        bwd_ms = time_backward_ms(lambda: fn(*leaves, **kw), g)
+        ref_leaves = [t.detach().clone().requires_grad_(True)
+                      for t in leaves]
+        plain_bwd_ms = time_backward_ms(lambda: ref(*ref_leaves, **kw), g,
+                                        iters=2)
+        nbytes = (2 * x.numel() + sum(t.numel() for t in p)) * 4
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        ok = err <= TOL[dtype] and g_err <= GRAD_TOL[dtype]
+        row = {"case": f"{label} {dtype}", "rel_err": err,
+               "max_abs_err": abs_err, "tol": TOL[dtype],
+               "grad_rel_err": g_err, "grad_tol": GRAD_TOL[dtype], "ok": ok,
+               "main_path": False, "train": True, "per_step": per_step,
+               "ms": ms, "backward_ms": bwd_ms, "plain_ms": plain_ms,
+               "plain_backward_ms": plain_bwd_ms, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by}
+        rates(row, flops)
+        print(f"{name} {row['case']}: rel err {err:.3e} (tol "
+              f"{TOL[dtype]:.0e}) grad rel err {g_err:.3e} (tol "
+              f"{GRAD_TOL[dtype]:.0e}) forward ms {ms:.4f} backward "
+              f"{bwd_ms:.3f} plain forward {plain_ms:.3f} plain backward "
+              f"{plain_bwd_ms:.3f} bound {b_ms:.4f} ({b_by}) "
+              f"{row['tflops']:.1f} TFLOP/s, "
+              f"{100 * row['bound_share']:.1f}% of bound", flush=True)
+        results[name].append(row)
+        if not ok:
+            bad.append(f"{name} {row['case']}")
+        del x, p, g, leaves, ref_leaves
+        if label == bf16_too[name]:
+            x, p = inputs(torch.bfloat16)
+            g_err, _, _ = grad_check(fn, ref, x, p, kw, gen)
+            print(f"{name} {label} bfloat16: grad rel err {g_err:.3e} "
+                  f"(tol {GRAD_TOL['bfloat16']:.0e})", flush=True)
+            if g_err > GRAD_TOL["bfloat16"]:
+                bad.append(f"{name} {label} bfloat16 gradients")
+            row["bf16_grad_rel_err"] = g_err
+            del x, p
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"training-shape kernel checks: {bad}")
 
 
 def draw_symbols(g, n: int, S: int, rng) -> tuple:
@@ -490,10 +669,14 @@ def rans_phase() -> dict:
     return rows
 
 
-def kernel_summary(results: dict, launches: dict) -> list:
+def kernel_summary(results: dict, launches: dict,
+                   train_launches: dict | None = None) -> list:
     """One entry per kernel: its time over one compress + decompress at
     the shapes of the path that runs it (per-shape time x launches of that
-    shape); launches as counted on that path."""
+    shape); launches as counted on that path. Kernels with rows at the
+    training shapes also get "train_step": their f32 forward and backward
+    time over one training step's launches, and the launches counted in
+    the train phase's step (wmsa_attention: the attention-only step)."""
     meta = {
         "wmsa_block": ("dcae_tpu_torch/csrc/wmsa_block.cu",
                        "dcae_tpu/ops/pallas/wmsa_v4.py:168"),
@@ -530,9 +713,25 @@ def kernel_summary(results: dict, launches: dict) -> list:
                                           "tflops", "bound_share",
                                           "host_coder_ms", "chain_steps",
                                           "bound_bytes",
-                                          "bits_per_symbol") if k in r}
+                                          "bits_per_symbol", "train",
+                                          "per_step", "backward_ms",
+                                          "plain_backward_ms",
+                                          "grad_rel_err",
+                                          "bf16_grad_rel_err") if k in r}
                        for r in rows],
         })
+        train = [r for r in rows if r.get("train")]
+        if train:
+            # the f32 training path: forward and recompute-backward time
+            # of one step's launches at its shapes, and their bound
+            out[-1]["train_step"] = {
+                key: sum(r[src] * r["per_step"] for r in train)
+                for key, src in (("forward_ms", "ms"),
+                                 ("backward_ms", "backward_ms"),
+                                 ("plain_forward_ms", "plain_ms"),
+                                 ("bound_ms", "bound_ms"))}
+            out[-1]["train_step"]["launches"] = train_launches.get(name) \
+                if train_launches else None
     return out
 
 
@@ -1042,6 +1241,83 @@ def _strings(enc: dict) -> dict:
     return {"strings": enc["strings"], "shape": enc["shape"]}
 
 
+def print_device_profile(prof, label: str, wall: float, what: str) -> None:
+    """Device time of a profiled window by kernel group, the share of the
+    wall time the device was busy, and the longest kernels."""
+    from torch.autograd import DeviceType
+
+    dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                            getattr(e, "self_cuda_time_total", 0))
+    # device-side events only: a CPU op's "self device time" repeats the
+    # time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev(e) > 0]
+    busy_ms = sum(dev(e) for e in events) / 1e3
+    groups: dict = {}
+    for e in events:
+        name = e.key
+        # both wmsa entries share wmsa_{mma,pack,fma}_kernel<kBlock>;
+        # every conv_glu phase (ln / rows, pack, gemm, gate) carries
+        # conv_glu in its name, the bf16 ones conv_glu_bf16, and is
+        # tested before "gemm";
+        # cuDNN's implicit-GEMM convolutions (fprop, dgrad, wgrad) are
+        # convolutions, not matrix products
+        low = name.lower()
+        g = ("rans_lanes kernels" if "rans_lanes" in name else
+             "wmsa_attention kernels" if "wmsa_" in name
+             and "<false>" in name
+             else "wmsa_block kernels" if "wmsa_" in name else
+             "conv_glu bf16 kernels" if "conv_glu_bf16" in name else
+             "conv_glu f32 kernels" if "conv_glu" in name else
+             "convolution" if any(k in low for k in (
+                 "conv", "cudnn", "fprop", "dgrad", "wgrad")) else
+             "gemm" if "gemm" in low or "cutlass" in low else "other")
+        groups[g] = groups.get(g, 0.0) + dev(e) / 1e3
+    print(f"profile {label}: {what}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}%)",
+          flush=True)
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"profile {label} group {g}: {ms:.2f} ms", flush=True)
+    # the 15 longest, and every kernel of the hand-written sources
+    ranked = sorted(events, key=dev, reverse=True)
+    for e in ranked[:15] + [e for e in ranked[15:]
+                            if "conv_glu" in e.key or "rans_lanes" in e.key
+                            or "wmsa_" in e.key]:
+        print(f"profile {label} kernel {dev(e) / 1e3:9.3f} ms "
+              f"x{e.count:4d}  {e.key[:90]}", flush=True)
+
+
+def profile_train_step() -> None:
+    """Where one warm full-width training step (f32, batch 8 of 256x256)
+    spends device time, and how long the device waits for the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.train.state import (create_train_state,
+                                            make_optimizer)
+    from dcae_tpu_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.deterministic = False
+    model = seeded_model(DCAEConfig(), dev)
+    batch = torch.from_numpy(train_batch()).to(dev)
+    tx = make_optimizer(1e-4, 1e-3, 1.0)
+    state = create_train_state(
+        model, tx, torch.Generator(device=dev).manual_seed(1))
+    step = make_train_step(model, tx, LMBDA, "mse")
+    timed_steps(step, state, batch, 3)                   # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_device_profile(prof, "train step", wall,
+                         f"one step of {TRAIN_BATCH} x 256x256 in f32")
+    free = timed_steps(step, state, batch, 3)
+    print(f"profile train step: unprofiled steps {free} ms", flush=True)
+
+
 def profile_phase() -> None:
     """Where one compress + decompress of the slice spends device time:
     torch.profiler over a warm run, kernels summed by name, and the share
@@ -1050,7 +1326,6 @@ def profile_phase() -> None:
     (compress_with_indexes) with the shipped-index decoder, and the
     interleaved profile (compress_device, decompress_interleaved)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from dcae_tpu_torch.config import DCAEConfig
     from dcae_tpu_torch.models.codec import DCAECodec
@@ -1072,8 +1347,6 @@ def profile_phase() -> None:
     }
     # the patch budget by the slice phase's rule
     open_patch_cap(codec, codec._input(imgs), "profile")
-    dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                            getattr(e, "self_cuda_time_total", 0))
     for label, (encode, decode) in pairs.items():
         decode(encode())                                 # warm-up
         torch.cuda.synchronize()
@@ -1086,45 +1359,13 @@ def profile_phase() -> None:
             decode(enc)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        # device-side events only: a CPU op's "self device time" repeats
-        # the time of the kernels it launched
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and dev(e) > 0]
-        busy_ms = sum(dev(e) for e in events) / 1e3
-        groups: dict = {}
-        for e in events:
-            name = e.key
-            # both wmsa entries share wmsa_{mma,pack,fma}_kernel<kBlock>;
-            # every conv_glu phase (ln / rows, pack, gemm, gate) carries
-            # conv_glu in its name, the bf16 ones conv_glu_bf16, and is
-            # tested before "gemm";
-            # cuDNN's implicit-GEMM convolutions (fprop, dgrad) are
-            # convolutions, not matrix products
-            low = name.lower()
-            g = ("rans_lanes kernels" if "rans_lanes" in name else
-                 "wmsa_attention kernels" if "wmsa_" in name
-                 and "<false>" in name
-                 else "wmsa_block kernels" if "wmsa_" in name else
-                 "conv_glu bf16 kernels" if "conv_glu_bf16" in name else
-                 "conv_glu f32 kernels" if "conv_glu" in name else
-                 "convolution" if any(k in low for k in (
-                     "conv", "cudnn", "fprop", "dgrad", "wgrad")) else
-                 "gemm" if "gemm" in low or "cutlass" in low else "other")
-            groups[g] = groups.get(g, 0.0) + dev(e) / 1e3
-        print(f"profile {label}: compress+decompress of {BATCH} images: "
-              f"wall {wall * 1e3:.1f} ms (compress {t_enc * 1e3:.1f} ms), "
-              f"device busy {busy_ms:.1f} ms "
-              f"({100 * busy_ms / (wall * 1e3):.1f}%)", flush=True)
-        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"profile {label} group {g}: {ms:.2f} ms", flush=True)
-        # the 15 longest, and every conv_glu phase kernel
-        ranked = sorted(events, key=dev, reverse=True)
-        for e in ranked[:15] + [e for e in ranked[15:]
-                                if "conv_glu" in e.key
-                                or "rans_lanes" in e.key]:
-            print(f"profile {label} kernel {dev(e) / 1e3:9.3f} ms "
-                  f"x{e.count:4d}  {e.key[:90]}", flush=True)
+        print_device_profile(
+            prof, label, wall, f"compress+decompress of {BATCH} images "
+            f"(compress {t_enc * 1e3:.1f} ms)")
     codec.close()
+    del codec
+    torch.cuda.empty_cache()
+    profile_train_step()
 
 
 def bands_phase(gen) -> None:
@@ -1163,10 +1404,412 @@ def bands_phase(gen) -> None:
               f"with the device drained", flush=True)
 
 
+# --------------------------------------------------------------- train --
+
+LMBDA = 0.0483
+NO_LANES = {"rans_lanes_encode": 0, "rans_lanes_decode": 0}
+
+
+def train_batch(n: int = TRAIN_BATCH, size: int = 256, seed: int = 100):
+    """n random size x size crops of n synthetic images, f32 NHWC in
+    [0, 1], by the trainer's own crop function."""
+    from dcae_tpu_torch.data.datasets import random_crop
+
+    imgs = synthetic_kodak(n, seed=seed).astype(np.float32) / 255.0
+    rng = np.random.default_rng(seed)
+    return np.stack([random_crop(img, size, rng) for img in imgs])
+
+
+def seeded_model(cfg, device):
+    import torch
+    from dcae_tpu_torch.models.dcae import DCAE
+
+    model = DCAE(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.to(device)
+
+
+def zero_gradient_names(model) -> list:
+    """Names of the parameters whose gradient is missing, not finite or
+    all zero. The dictionary attention's key bias adds the same number to
+    every score of a query, which softmax ignores: its true gradient is 0
+    and what it holds is rounding noise, so it is not asked to be
+    nonzero."""
+    import torch
+
+    bad = []
+    for name, p in model.named_parameters():
+        g = p.grad
+        if g is None or not bool(torch.isfinite(g).all()):
+            bad.append(name)
+        elif float(g.abs().max()) == 0.0 and not name.endswith(".k.bias"):
+            bad.append(name)
+    return bad
+
+
+def eval_loss(model, batch) -> float:
+    """The noise-free objective on `batch`: eval-mode RD loss + aux."""
+    import torch
+    from dcae_tpu_torch.train.step import make_eval_step
+
+    with torch.no_grad():
+        return float(make_eval_step(model, LMBDA)(batch)["loss"]
+                     + model.aux_loss())
+
+
+def check_finite(metrics: dict, state) -> None:
+    values = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        fail(f"train: a loss is not finite at step {state.step}: {values}")
+
+
+def timed_steps(step, state, batch, n: int) -> list:
+    """Host ms of n steps, each drained; fails on a loss that is not
+    finite."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        check_finite(metrics, state)
+    return out
+
+
+def split_steps(model, tx, state, batch, n: int) -> dict:
+    """n steps taken apart by CUDA events: forward (loss_fn), backward,
+    optimizer (apply_updates), and inside the backward the three kernels'
+    recompute backwards (events around every recompute_backward call).
+    Mean ms a step of each."""
+    import torch
+    from dcae_tpu_torch.ops.kernels import conv_glu as cg
+    from dcae_tpu_torch.ops.kernels import wmsa_attention as wa
+    from dcae_tpu_torch.ops.kernels import wmsa_block as wm
+    from dcae_tpu_torch.train.state import apply_updates
+    from dcae_tpu_torch.train.step import make_loss_fn
+
+    loss_fn = make_loss_fn(model, LMBDA)
+    event = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    spans = {"wmsa_block": [], "wmsa_attention": [], "conv_glu": []}
+    real = wm.recompute_backward
+
+    def timed(name):
+        def wrapper(*a, **k):
+            start, end = event(), event()
+            start.record()
+            out = real(*a, **k)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return wrapper
+
+    marks = []
+    modules = {"wmsa_block": wm, "wmsa_attention": wa, "conv_glu": cg}
+    for name, mod in modules.items():
+        mod.recompute_backward = timed(name)
+    try:
+        for _ in range(n):
+            e = [event() for _ in range(4)]
+            for p in model.parameters():
+                p.grad = None
+            e[0].record()
+            loss, _ = loss_fn(batch, state.generator)
+            e[1].record()
+            loss.backward()
+            e[2].record()
+            apply_updates(state, tx)
+            e[3].record()
+            marks.append(e)
+    finally:
+        for mod in modules.values():
+            mod.recompute_backward = real
+    torch.cuda.synchronize()
+    mean = lambda pairs: sum(a.elapsed_time(b) for a, b in pairs) / n  # noqa
+    res = {"forward_ms": mean([(e[0], e[1]) for e in marks]),
+           "backward_ms": mean([(e[1], e[2]) for e in marks]),
+           "optimizer_ms": mean([(e[2], e[3]) for e in marks])}
+    res["recompute_backward_ms"] = {k: mean(v) for k, v in spans.items()}
+    res["recompute_backward_calls"] = {k: len(v) // n
+                                       for k, v in spans.items()}
+    res["recompute_share_of_backward"] = sum(
+        res["recompute_backward_ms"].values()) / res["backward_ms"]
+    return res
+
+
+def full_width_steps() -> dict:
+    """The trainer's functions on the full-width model."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.train.state import (create_train_state,
+                                            make_optimizer)
+    from dcae_tpu_torch.train.step import make_loss_fn, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = DCAEConfig()
+    t0 = time.perf_counter()
+    model = seeded_model(cfg, dev)
+    batch = torch.from_numpy(train_batch()).to(dev)
+    tx = make_optimizer(1e-4, 1e-3, 1.0)
+    state = create_train_state(
+        model, tx, torch.Generator(device=dev).manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"train: {n_params / 1e6:.1f}M parameters, batch "
+          f"{tuple(batch.shape)}, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    want = {"wmsa_block": 30, "conv_glu": 29, "wmsa_attention": 0,
+            **NO_LANES}
+    loss_before = eval_loss(model, batch)
+
+    # the gradients of step 1, before any update
+    (loss, _), counts, _ = counted(
+        lambda: make_loss_fn(model, LMBDA)(batch, state.generator))
+    loss.backward()
+    torch.cuda.synchronize()
+    check_counts("train forward", counts, want)
+    bad = zero_gradient_names(model)
+    if bad:
+        fail(f"train: {len(bad)} parameters without a finite nonzero "
+             f"gradient at step 1: {bad}")
+    q = model.entropy_bottleneck.quantiles
+    (q_aux,) = torch.autograd.grad(model.aux_loss(), [q])
+    q_err = rel_err(q.grad, q_aux)
+    in_main = any(p is q for p in state.main_params())
+    in_aux = any(p is q for g in state.aux_opt.param_groups
+                 for p in g["params"])
+    print(f"train: every one of {len(list(model.parameters()))} parameter "
+          f"tensors has a finite nonzero gradient at step 1; quantiles' "
+          f"gradient vs the aux loss's alone: rel err {q_err:.1e}; in the "
+          f"main Adam {in_main}, in the aux Adam {in_aux}", flush=True)
+    if q_err > 1e-6 or in_main or not in_aux:
+        fail("train: the quantiles get an RD gradient or sit in the wrong "
+             "optimizer")
+    del loss
+
+    step = make_train_step(model, tx, LMBDA, "mse")
+    q_before = q.detach().clone()
+    (_, metrics), counts, _ = counted(lambda: step(state, batch))
+    check_finite(metrics, state)
+    check_counts("train step", counts, want)
+    if torch.equal(q, q_before):
+        fail("train: the quantiles did not move")
+    timed_steps(step, state, batch, 2)                   # 3 warm in all
+    torch.cuda.reset_peak_memory_stats()
+    runs = timed_steps(step, state, batch, 5)
+    peak = torch.cuda.max_memory_allocated()
+    split = split_steps(model, tx, state, batch, 3)
+    # what full-f32 products cost: the same steps with TF32 allowed in
+    # cuBLAS and cuDNN (the hand kernels do not read these flags)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_runs = timed_steps(step, state, batch, 4)[1:]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    reg = make_train_step(model, tx, LMBDA, "mse", precision_reg=0.001)
+    (_, reg_metrics), reg_counts, _ = counted(lambda: reg(state, batch))
+    check_counts("train step with precision_reg", reg_counts,
+                 {"wmsa_block": 60, "conv_glu": 63, "wmsa_attention": 0,
+                  **NO_LANES})
+    check_finite(reg_metrics, state)
+    p_loss = float(reg_metrics["precision_loss"])
+    if not p_loss > 0:
+        fail(f"train: precision_loss {p_loss}")
+    reg_runs = timed_steps(reg, state, batch, 2)
+    loss_after = eval_loss(model, batch)
+    med = float(np.median(runs))
+    res = {"step_ms_median": med, "step_ms_runs": runs,
+           "images_per_s": TRAIN_BATCH / med * 1e3,
+           "peak_memory_bytes": peak, **split,
+           "tf32_allowed_step_ms_runs": tf32_runs,
+           "precision_reg_step_ms_runs": reg_runs,
+           "precision_loss": p_loss, "steps": state.step,
+           "loss_before": loss_before, "loss_after": loss_after,
+           "launches_step": counts, "launches_precision_step": reg_counts}
+    print("train: " + json.dumps(res), flush=True)
+    print(f"train: step {med:.1f} ms median of 5 (min {min(runs):.1f}, max "
+          f"{max(runs):.1f}), {res['images_per_s']:.2f} images/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB; forward {split['forward_ms']:.1f} / "
+          f"backward {split['backward_ms']:.1f} / optimizer "
+          f"{split['optimizer_ms']:.1f} ms; recompute backwards "
+          f"{100 * split['recompute_share_of_backward']:.1f}% of the "
+          f"backward; with TF32 allowed {float(np.median(tf32_runs)):.1f} "
+          f"ms; with precision_reg {min(reg_runs):.1f} ms; loss "
+          f"{loss_before:.2f} -> {loss_after:.2f} after {state.step} steps",
+          flush=True)
+    if not (np.isfinite(loss_after) and loss_after < loss_before):
+        fail(f"train: the loss did not fall: {loss_before} -> {loss_after}")
+    del model, state, step, reg
+
+    # the attention-only configuration: wmsa_attention's Function
+    torch.cuda.empty_cache()
+    cfg = DCAEConfig(fused_attention_block=False)
+    model = seeded_model(cfg, dev)
+    state = create_train_state(
+        model, tx, torch.Generator(device=dev).manual_seed(1))
+    step = make_train_step(model, tx, LMBDA, "mse")
+    (_, metrics), attn_counts, _ = counted(lambda: step(state, batch))
+    check_finite(metrics, state)
+    check_counts("attention-only train step", attn_counts,
+                 {"wmsa_block": 0, "conv_glu": 29, "wmsa_attention": 30,
+                  **NO_LANES})
+    bad = zero_gradient_names(model)
+    if bad:
+        fail(f"train: attention-only: parameters without a finite nonzero "
+             f"gradient: {bad}")
+    res["attention_only_step_ms"] = timed_steps(step, state, batch, 2)
+    res["launches_attention_only_step"] = attn_counts
+    print(f"train: attention-only step {res['attention_only_step_ms']} ms, "
+          f"launches {attn_counts}", flush=True)
+    return res
+
+
+def tiny_step_card_vs_cpu() -> dict:
+    """One training step of the tiny window-8 model on the card against the
+    same step on the CPU (the plain versions): same seeded weights, same
+    batch and, since the two devices' generators draw different numbers,
+    the same noise (noise_quantize replaced, for this check, by one that
+    adds a seeded array made on the host). Loss within 1e-5 relative and
+    every gradient within 1e-4 of its largest entry (9e-8 and 7.8e-6
+    measured on an H100; the zero-gradient key biases: within 1e-5 of the
+    key weight's gradient); the parameters after the step within 2.1
+    learning rates everywhere (Adam's first step moves a weight by at most
+    one) and within 0.05 of one for 99%."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.entropy import ops
+    from dcae_tpu_torch.train.state import (create_train_state,
+                                            make_optimizer)
+    from dcae_tpu_torch.train.step import make_train_step
+
+    cfg = DCAEConfig.tiny(window_size=8, hyper_window_size=4)
+    batch = train_batch(2, 128, seed=3)
+    lr = 1e-4
+    tx = make_optimizer(lr, 1e-3, 1.0)
+
+    def fixed_noise(x, generator):
+        seed = int(np.prod(x.shape)) * 7 + x.dim()
+        noise = torch.rand(x.shape, generator=torch.Generator()
+                           .manual_seed(seed)) - 0.5
+        return x + noise.to(x.device)
+
+    real, ops.noise_quantize = ops.noise_quantize, fixed_noise
+    try:
+        got = {}
+        for dev in ("cpu", "cuda"):
+            model = seeded_model(cfg, dev)
+            state = create_train_state(model, tx,
+                                       torch.Generator(device=dev))
+            _, metrics = make_train_step(model, tx, LMBDA)(
+                state, torch.from_numpy(batch).to(dev))
+            got[dev] = ({k: float(v) for k, v in metrics.items()},
+                        {n: p.grad.cpu() for n, p in
+                         model.named_parameters()},
+                        {n: p.detach().cpu() for n, p in
+                         model.named_parameters()})
+    finally:
+        ops.noise_quantize = real
+    (m_cpu, g_cpu, p_cpu), (m_card, g_card, p_card) = got["cpu"], got["cuda"]
+    loss_err = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    grad_err, worst = 0.0, ""
+    for n in g_cpu:
+        if n.endswith(".k.bias"):       # true gradient 0: noise on both
+            scale = float(g_cpu[n[:-4] + "weight"].abs().max())
+            if float(g_card[n].abs().max()) > 1e-5 * scale:
+                fail(f"train: {n} holds more than rounding noise")
+            continue
+        err = rel_err(g_card[n], g_cpu[n])
+        if err > grad_err:
+            grad_err, worst = err, n
+    diff = torch.cat([(p_card[n] - p_cpu[n]).abs().flatten() for n in p_cpu])
+    p_max = float(diff.max()) / lr
+    p_99 = float(torch.quantile(diff, 0.99)) / lr
+    res = {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+           "grad_worst": worst, "param_max_diff_in_lr": p_max,
+           "param_p99_diff_in_lr": p_99, "loss": m_card["loss"]}
+    print("train tiny card vs CPU: " + json.dumps(res), flush=True)
+    if loss_err > 1e-5 or grad_err > 1e-4 or p_max > 2.1 or p_99 > 0.05:
+        fail("train: the tiny step on the card differs from the CPU's")
+    return res
+
+
+def tiny_run_training() -> dict:
+    """One tiny-config run_training epoch on PNGs written here, on the
+    card, with a real-codec validation; then a second epoch resumed from
+    the first one's checkpoint."""
+    import dataclasses
+
+    import torch
+    from PIL import Image
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.train.loop import TrainOptions, run_training
+    from dcae_tpu_torch.utils.checkpoint import load_params_only
+
+    cfg = DCAEConfig.tiny(window_size=8, hyper_window_size=4)
+    imgs = synthetic_kodak(10, 192, 256, seed=11)
+    with tempfile.TemporaryDirectory(prefix="dcae_smoke_") as tmp:
+        for split, part in (("train", imgs[:8]), ("test", imgs[8:])):
+            os.makedirs(os.path.join(tmp, split))
+            for i, img in enumerate(part):
+                Image.fromarray(img).save(
+                    os.path.join(tmp, split, f"{i}.png"))
+        save = os.path.join(tmp, "ck")
+        opts = TrainOptions(dataset=tmp, epochs=1, batch_size=4,
+                            test_batch_size=2, patch_size=128, lmbda=LMBDA,
+                            save_path=save, val_real_every=1,
+                            val_real_images=2, log_every=1, num_workers=2)
+        _, counts, _ = counted(lambda: run_training(opts, cfg=cfg))
+        latest = os.path.join(save, "checkpoint_latest.ckpt")
+        saved = load_params_only(latest)
+        state = run_training(dataclasses.replace(
+            opts, epochs=2, checkpoint=latest), cfg=cfg)
+        with open(os.path.join(save, "train.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    moved = not torch.equal(
+        saved["g_a.0.conv.weight"],
+        state.model.state_dict()["g_a.0.conv.weight"].cpu())
+    spaces = sorted({r["ns"] for r in records})
+    res = {"steps": state.step, "log_namespaces": spaces,
+           "resumed_and_moved": moved, "launches_first_epoch": counts}
+    print("train tiny run_training: " + json.dumps(res), flush=True)
+    if state.step != 4 or not moved or \
+            not {"train", "val", "val_real"} <= set(spaces) or \
+            not all(np.isfinite(v) for r in records for k, v in r.items()
+                    if k not in ("ns",)):
+        fail("train: the tiny run_training epochs")
+    if counts["wmsa_block"] == 0 or counts["conv_glu"] != 0:
+        # the tiny widths route no GLU to the kernel; every block is one
+        fail(f"train: tiny run_training launches {counts}")
+    return res
+
+
+def train_phase() -> dict:
+    import torch
+
+    # the codec phases made cuDNN deterministic; training runs without
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = False
+    try:
+        res = full_width_steps()
+        torch.cuda.empty_cache()
+        res["tiny_card_vs_cpu"] = tiny_step_card_vs_cpu()
+        res["tiny_run_training"] = tiny_run_training()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "reference",
-                                        "slice", "profile", "bands"),
+                                        "slice", "train", "profile",
+                                        "bands"),
                     default="all",
                     help="one phase only; profile (not part of all) traces "
                     "the slice with torch.profiler; bands (not part of all) "
@@ -1204,6 +1847,9 @@ def main() -> int:
         reference_phase()
     if args.phase in ("all", "slice"):
         slice_res = slice_phase()
+    train_res = None
+    if args.phase in ("all", "train"):
+        train_res = train_phase()
     if args.phase == "profile":
         profile_phase()
     if args.phase == "bands":
@@ -1219,8 +1865,16 @@ def main() -> int:
         launches = {k: slice_res[paths[k]]["launches_compress"][k]
                     + slice_res[paths[k]]["launches_decompress"][k]
                     for k in results}
-        print(json.dumps({"kernels": kernel_summary(results, launches),
-                          "slice": slice_res}))
+        # on the training path: the default step's counts, and the
+        # attention-only step's for wmsa_attention
+        train_launches = None
+        if train_res is not None:
+            train_launches = dict(train_res["launches_step"])
+            train_launches["wmsa_attention"] = train_res[
+                "launches_attention_only_step"]["wmsa_attention"]
+        print(json.dumps({"kernels": kernel_summary(results, launches,
+                                                    train_launches),
+                          "slice": slice_res, "train": train_res}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

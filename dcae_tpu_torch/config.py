@@ -57,7 +57,7 @@ class DCAEConfig:
     scales_levels: int = 64
     gc_tail_mass: float = 1e-9
 
-    # drift-robust training noise (0 disables; training is not ported yet)
+    # drift-robust training noise (0 disables)
     drift_noise: float = 0.0
 
     # compute dtype of the one-sided transforms g_a/h_a/g_s ("float32" or

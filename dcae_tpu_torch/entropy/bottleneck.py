@@ -54,14 +54,19 @@ class EntropyBottleneck(nn.Module):
             [-self.init_scale, 0.0, self.init_scale]).repeat(
                 self.channels, 1, 1))
 
-    def _logits_cumulative(self, inputs: torch.Tensor) -> torch.Tensor:
-        """inputs: (C, 1, N) -> logits of the cumulative at those points."""
+    def _logits_cumulative(self, inputs: torch.Tensor,
+                           stop_gradient: bool = False) -> torch.Tensor:
+        """inputs: (C, 1, N) -> logits of the cumulative at those points.
+        stop_gradient: no gradient reaches the matrices, biases and
+        factors (the quantile loss trains the quantiles alone)."""
+        stop = (lambda t: t.detach()) if stop_gradient else (lambda t: t)
         logits = inputs
         for i in range(len(self.filters) + 1):
-            matrix = F.softplus(getattr(self, f"_matrix{i}"))
-            logits = torch.matmul(matrix, logits) + getattr(self, f"_bias{i}")
+            matrix = F.softplus(stop(getattr(self, f"_matrix{i}")))
+            logits = torch.matmul(matrix, logits) \
+                + stop(getattr(self, f"_bias{i}"))
             if i < len(self.filters):
-                factor = getattr(self, f"_factor{i}")
+                factor = stop(getattr(self, f"_factor{i}"))
                 logits = logits + torch.tanh(factor) * torch.tanh(logits)
         return logits
 
@@ -76,17 +81,31 @@ class EntropyBottleneck(nn.Module):
         return torch.abs(torch.sigmoid(sign * upper)
                          - torch.sigmoid(sign * lower))
 
-    def forward(self, z: torch.Tensor):
-        """Eval mode. z: NHWC. Returns (values, likelihoods), both NHWC;
-        values are rounded around the channel medians."""
+    def forward(self, z: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None):
+        """z: NHWC. Returns (values, likelihoods), both NHWC. Training adds
+        U(-0.5, 0.5) noise from `generator` for the likelihood; eval rounds
+        around the channel medians."""
         B, H, W, C = z.shape
         if C != self.channels:
             raise ValueError(f"expected {self.channels} channels, got {C}")
-        medians = self.medians().reshape(1, 1, 1, C)
-        values = ops.dequantize(ops.quantize_symbols(z, medians), medians)
+        if training:
+            if generator is None:
+                raise ValueError("training=True requires a generator")
+            values = ops.noise_quantize(z, generator)
+        else:
+            medians = self.medians().reshape(1, 1, 1, C)
+            values = ops.dequantize(ops.quantize_symbols(z, medians), medians)
         v = values.permute(3, 0, 1, 2).reshape(C, 1, B * H * W)
         like = self._likelihood(v)
         if self.likelihood_bound > 0:
             like = ops.lower_bound(like, self.likelihood_bound)
         like = like.reshape(C, B, H, W).permute(1, 2, 3, 0)
         return values, like
+
+    def aux_loss(self) -> torch.Tensor:
+        """Quantile-tracking loss; gradients reach `quantiles` alone."""
+        logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
+        t = math.log(2.0 / self.tail_mass - 1.0)
+        target = logits.new_tensor([-t, 0.0, t]).reshape(1, 1, 3)
+        return torch.abs(logits - target).sum()

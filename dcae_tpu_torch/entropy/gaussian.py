@@ -43,10 +43,16 @@ def likelihood(inputs: torch.Tensor, scales: torch.Tensor,
 
 def apply(inputs: torch.Tensor, scales: torch.Tensor,
           means: torch.Tensor | None = None,
-          scale_bound: float = SCALES_MIN):
-    """Eval-mode (values, likelihoods): values are rounded around the
-    means."""
-    values = ops.dequantize(ops.quantize_symbols(inputs, means), means)
+          scale_bound: float = SCALES_MIN, *, training: bool = False,
+          generator: torch.Generator | None = None):
+    """(values, likelihoods): noise quantization during training (the
+    noise from `generator`), values rounded around the means otherwise."""
+    if training:
+        if generator is None:
+            raise ValueError("training=True requires a generator")
+        values = ops.noise_quantize(inputs, generator)
+    else:
+        values = ops.dequantize(ops.quantize_symbols(inputs, means), means)
     return values, likelihood(values, scales, means, scale_bound)
 
 

@@ -30,6 +30,16 @@ def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
     return _LowerBound.apply(x, bound)
 
 
+def noise_quantize(x: torch.Tensor, generator: torch.Generator
+                   ) -> torch.Tensor:
+    """Additive U(-0.5, 0.5) noise, the training-time surrogate of
+    rounding. The noise is drawn from `generator`, which must live on x's
+    device."""
+    noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                       device=x.device)
+    return x + (noise - 0.5)
+
+
 def quantize_symbols(x: torch.Tensor, means: torch.Tensor | None = None
                      ) -> torch.Tensor:
     """Integer symbols for entropy coding: round(x - means)."""

@@ -37,6 +37,21 @@ class CdfTable:
                                               self.cdf_length)
         return self._lut
 
+    def as_dict(self, prefix: str) -> dict:
+        return {
+            f"{prefix}quantized_cdf": self.quantized_cdf,
+            f"{prefix}cdf_length": self.cdf_length,
+            f"{prefix}offset": self.offset,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict, prefix: str) -> "CdfTable":
+        return cls(
+            quantized_cdf=np.asarray(d[f"{prefix}quantized_cdf"], np.int32),
+            cdf_length=np.asarray(d[f"{prefix}cdf_length"], np.int32),
+            offset=np.asarray(d[f"{prefix}offset"], np.int32),
+        )
+
 
 @dataclasses.dataclass
 class CodecTables:
@@ -46,6 +61,33 @@ class CodecTables:
     factorized: CdfTable
     medians: np.ndarray      # float32 [C]: z quantization offsets
     scale_table: np.ndarray  # float32 [levels]
+
+    def as_dict(self) -> dict:
+        d = {}
+        d.update(self.gaussian.as_dict("gaussian_"))
+        d.update(self.factorized.as_dict("factorized_"))
+        d["medians"] = self.medians
+        d["scale_table"] = self.scale_table
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CodecTables":
+        return cls(
+            gaussian=CdfTable.from_dict(d, "gaussian_"),
+            factorized=CdfTable.from_dict(d, "factorized_"),
+            medians=np.asarray(d["medians"], np.float32),
+            scale_table=np.asarray(d["scale_table"], np.float32),
+        )
+
+    def save(self, path: str) -> None:
+        """One .npz, in the JAX package's key names: either package loads
+        the other's file."""
+        np.savez(path, **self.as_dict())
+
+    @classmethod
+    def load(cls, path: str) -> "CodecTables":
+        with np.load(path) as z:
+            return cls.from_dict(dict(z))
 
 
 def _standardized_cumulative(x: np.ndarray) -> np.ndarray:

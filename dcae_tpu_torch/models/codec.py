@@ -180,6 +180,11 @@ class DCAECodec:
         """Eval-mode forward pass (likelihoods, no bitstream)."""
         return self.model(self._input(x))
 
+    @torch.no_grad()
+    def aux_loss(self) -> float:
+        """The bottleneck's quantile loss at the current parameters."""
+        return float(self.model.aux_loss())
+
     def update(self, scale_table=None, force: bool = False) -> bool:
         """Bake the integer coding tables from the current parameters (and
         `scale_table`, which then replaces the Gaussian scale table on the

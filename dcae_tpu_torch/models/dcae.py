@@ -2,7 +2,15 @@
 
     forward(x) -> {x_hat, likelihoods{y, z}, para{means, scales, y, ...}}
 
-plus the pieces the real codec drives: encode_analysis, encode_rest /
+forward(x, training=True, generator=g) is the training forward: additive
+uniform noise in place of rounding for the likelihoods, and, with
+cfg.drift_noise > 0, uniform drift noise on the decoder-side support, mu,
+sigma and the transferred z_hat; all noise comes from the one explicit
+torch.Generator `g` (on x's device). decode_from_quantized is the decoder
+half on an already quantized latent (the precision-regularization pass) and
+aux_loss the bottleneck's quantile loss.
+
+Plus the pieces the real codec drives: encode_analysis, encode_rest /
 encode_arrays (the split and fused encoders), decode_start / decode_step /
 decode_end (the per-slice decoder, which the staged encoder replays),
 decode_all (the shipped-index decoder), latent_decompress (the latent
@@ -20,7 +28,7 @@ and the LRP bitwise, and both call the same functions here.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -99,54 +107,94 @@ class DCAE(nn.Module):
         dtype = next(module.parameters()).dtype
         return module(x.to(dtype)).to(torch.float32)
 
+    def synthesis(self, y_hat: torch.Tensor) -> torch.Tensor:
+        """g_s alone: the reconstruction in f32."""
+        return self._run(self.g_s, y_hat)
+
+    def hyper_analysis(self, y: torch.Tensor) -> torch.Tensor:
+        """h_a alone: the hyper latent z in f32."""
+        return self._run(self.h_a, y)
+
     def hyper_synthesis(self, z_hat: torch.Tensor):
         return self.h_z_s1(z_hat), self.h_z_s2(z_hat)
 
     def eb_medians(self) -> torch.Tensor:
         return self.entropy_bottleneck.medians()
 
+    def aux_loss(self) -> torch.Tensor:
+        return self.entropy_bottleneck.aux_loss()
+
+    def _drift(self, x: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+        """x + U(-drift_noise, drift_noise): the training-time drift
+        injection. Off without a generator (eval, or a caller that asks
+        for none) and unless cfg.drift_noise > 0."""
+        if generator is None or self.cfg.drift_noise <= 0:
+            return x
+        noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                           device=x.device) - 0.5
+        return x + noise * (2 * self.cfg.drift_noise)
+
     def _slice_context(self, i: int, latent_scales, latent_means,
-                       y_hat_slices: List[torch.Tensor], y_h: int, y_w: int):
+                       y_hat_slices: List[torch.Tensor], y_h: int, y_w: int,
+                       drift: Optional[torch.Generator] = None):
         """Context of slice i: query -> dictionary cross-attention ->
-        support -> (support, mu, sigma)."""
+        support -> (support, mu, sigma). `drift`: the generator of the
+        drift injection on support, mu and sigma (training only)."""
         support_slices = y_hat_slices[: self.cfg.max_support_slices]
         query = torch.cat([latent_scales, latent_means, *support_slices],
                           dim=-1)
         dict_info = self.dt_cross_attention[i](query, self.dt)
-        support = torch.cat([query, dict_info], dim=-1)
+        support = self._drift(torch.cat([query, dict_info], dim=-1), drift)
         mu = self.cc_mean_transforms[i](support)[:, :y_h, :y_w]
         sigma = self.cc_scale_transforms[i](support)[:, :y_h, :y_w]
-        return support, mu, sigma
+        return support, self._drift(mu, drift), self._drift(sigma, drift)
 
     def _slice_lrp(self, i: int, support, y_hat_slice) -> torch.Tensor:
         lrp_in = torch.cat([support, y_hat_slice], dim=-1)
         return 0.5 * torch.tanh(self.lrp_transforms[i](lrp_in))
 
-    # ------------------------------------------------- eval-mode forward --
+    # ---------------------------------------- training / eval forward --
 
-    def encode_half(self, x: torch.Tensor):
-        """(y, z_hat, z_likelihoods): g_a, h_a, entropy bottleneck."""
+    @staticmethod
+    def _training_generator(training: bool, generator):
+        if training and generator is None:
+            raise ValueError("training=True requires a generator")
+        return generator if training else None
+
+    def encode_half(self, x: torch.Tensor, training: bool = False,
+                    generator: Optional[torch.Generator] = None):
+        """(y, z_hat, z_likelihoods): g_a, h_a, entropy bottleneck. In
+        training the likelihood sees noise-quantized z and z_hat gets the
+        transfer drift."""
+        gen = self._training_generator(training, generator)
         y = self._run(self.g_a, x)
         z = self._run(self.h_a, y)
-        _, z_likelihoods = self.entropy_bottleneck(z)
+        _, z_likelihoods = self.entropy_bottleneck(z, training=training,
+                                                   generator=gen)
         medians = self.eb_medians().reshape(1, 1, 1, -1)
-        z_hat = ste_round(z - medians) + medians
+        z_hat = self._drift(ste_round(z - medians) + medians, gen)
         return y, z_hat, z_likelihoods
 
-    def decode_half(self, y: torch.Tensor, z_hat: torch.Tensor):
+    def decode_half(self, y: torch.Tensor, z_hat: torch.Tensor,
+                    training: bool = False,
+                    generator: Optional[torch.Generator] = None):
         """(x_hat, y_likelihoods, means, scales, y_hat) from raw y and the
         quantized z_hat."""
         cfg = self.cfg
+        gen = self._training_generator(training, generator)
         _, y_h, y_w, _ = y.shape
         latent_scales, latent_means = self.hyper_synthesis(z_hat)
         y_hat_slices: List[torch.Tensor] = []
         likes, mus, sigmas = [], [], []
         for i, y_slice in enumerate(y.split(cfg.slice_dim, dim=-1)):
             support, mu, sigma = self._slice_context(
-                i, latent_scales, latent_means, y_hat_slices, y_h, y_w)
+                i, latent_scales, latent_means, y_hat_slices, y_h, y_w,
+                drift=gen)
             mus.append(mu)
             sigmas.append(sigma)
-            _, like = gaussian.apply(y_slice, sigma, mu, cfg.scales_min)
+            _, like = gaussian.apply(y_slice, sigma, mu, cfg.scales_min,
+                                     training=training, generator=gen)
             likes.append(like)
             y_hat_slice = ste_round(y_slice - mu) + mu
             y_hat_slice = y_hat_slice + self._slice_lrp(i, support,
@@ -157,16 +205,33 @@ class DCAE(nn.Module):
         return (x_hat, torch.cat(likes, dim=-1), torch.cat(mus, dim=-1),
                 torch.cat(sigmas, dim=-1), y_hat)
 
-    def forward(self, x: torch.Tensor) -> dict:
-        y, z_hat, z_likelihoods = self.encode_half(x)
-        x_hat, y_likelihoods, means, scales, y_hat = self.decode_half(y,
-                                                                      z_hat)
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> dict:
+        y, z_hat, z_likelihoods = self.encode_half(x, training, generator)
+        x_hat, y_likelihoods, means, scales, y_hat = self.decode_half(
+            y, z_hat, training, generator)
         return {
             "x_hat": x_hat,
             "likelihoods": {"y": y_likelihoods, "z": z_likelihoods},
             "para": {"means": means, "scales": scales, "y": y,
                      "y_hat": y_hat, "z_hat": z_hat},
         }
+
+    def decode_from_quantized(self, y_hat: torch.Tensor,
+                              z_hat: torch.Tensor) -> torch.Tensor:
+        """The decoder half on an ALREADY quantized latent: no rounding
+        again; each received slice gets its LRP correction and feeds the
+        next slice's context. The second and third decoder passes of the
+        precision-regularization penalty (train/step.py)."""
+        _, y_h, y_w, _ = y_hat.shape
+        latent_scales, latent_means = self.hyper_synthesis(z_hat)
+        out_slices: List[torch.Tensor] = []
+        for i, y_slice in enumerate(y_hat.to(torch.float32).split(
+                self.cfg.slice_dim, dim=-1)):
+            support, _, _ = self._slice_context(
+                i, latent_scales, latent_means, out_slices, y_h, y_w)
+            out_slices.append(y_slice + self._slice_lrp(i, support, y_slice))
+        return self._run(self.g_s, torch.cat(out_slices, dim=-1))
 
     # ------------------------------------------------ real-codec pieces --
 

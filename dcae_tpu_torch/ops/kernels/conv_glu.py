@@ -7,6 +7,15 @@ fc1, gate, fc2 as phases; bf16 calls band by band, see `band_plan`) for
 CUDA tensors and runs `conv_glu_ref`, the plain PyTorch statement of the
 same math, for CPU tensors.
 
+Training: where grad mode is on and an operand requires grad, the CUDA call
+goes through `ConvGluFunction` (kernel forward, gradients by a recompute
+through `conv_glu_ref` in f32: the counterpart of `conv_glu_trainable`).
+The kernels evaluate GELU with the Abramowitz-Stegun erf approximation and
+the plain version with the exact erf; the backward differentiates the plain
+one, as the JAX package's differentiates its exact-erf restatement.
+Differentiable: x, the LN weight and bias (not when apply_ln is false), W1,
+b1, the depthwise taps and bias, W2, b2.
+
 Weights are in torch layout: w1 (2h, C) packed [gate | value] (fc1),
 dw_w (h, 1, 3, 3), w2 (C, h) (fc2).
 """
@@ -20,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from dcae_tpu_torch.ops.kernels import _build
+from dcae_tpu_torch.ops.kernels._grad import recompute_backward, wants_grad
 
 
 def supported(C: int, hidden: int, dtype: torch.dtype) -> bool:
@@ -113,15 +123,10 @@ def _entry():
             _build.bind_query(lib, "dcae_conv_glu_scratch", 7))
 
 
-def conv_glu(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
-             apply_ln: bool = True) -> torch.Tensor:
-    """x: (B, H, W, C) -> (B, H, W, C) in x's dtype. CPU tensors run
-    conv_glu_ref; CUDA tensors launch the kernels or raise. ln_w/ln_b are
-    read only when apply_ln. One call counts as one launch, whatever the
-    number of phase kernels and bands."""
-    if x.device.type == "cpu":
-        return conv_glu_ref(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2,
-                            apply_ln=apply_ln)
+def launch(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
+           apply_ln: bool) -> torch.Tensor:
+    """Launch the kernels of csrc/conv_glu.cu on CUDA tensors. Raises on
+    any other device and on what the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"conv_glu: no kernel for {x.device}")
     B, H, W, C = x.shape
@@ -154,8 +159,52 @@ def conv_glu(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
                 out.data_ptr(), scratch.data_ptr(), bands, B, H, W, C, h,
                 int(apply_ln), int(bf16), n_bands, band_rows, stream)
     _build.check(rc, "conv_glu")
+    return out
+
+
+class ConvGluFunction(torch.autograd.Function):
+    """The conv_glu kernels with gradients. forward launches the kernels
+    and saves the operands alone (the [g | v] scratch dies with the call);
+    backward differentiates conv_glu_ref on f32 copies and returns each
+    gradient in its operand's dtype. When apply_ln is false the LN weight
+    and bias are not operands: they are neither saved nor given a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, apply_ln: bool, x, ln_w, ln_b, *rest):
+        ctx.apply_ln = apply_ln
+        if not apply_ln:
+            ln_w = ln_b = None
+        ctx.save_for_backward(x, ln_w, ln_b, *rest)
+        return _launch_counted(x, ln_w, ln_b, *rest, apply_ln=apply_ln)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = recompute_backward(
+            conv_glu_ref, ctx.saved_tensors, ctx.needs_input_grad[1:],
+            grad_out, apply_ln=ctx.apply_ln)
+        return (None, *grads)
+
+
+def _launch_counted(*operands, apply_ln: bool) -> torch.Tensor:
+    out = launch(*operands, apply_ln=apply_ln)
     conv_glu.launches += 1
     return out
+
+
+def conv_glu(x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2, *,
+             apply_ln: bool = True) -> torch.Tensor:
+    """x: (B, H, W, C) -> (B, H, W, C) in x's dtype. CPU tensors run
+    conv_glu_ref; CUDA tensors launch the kernels or raise, through
+    ConvGluFunction where a gradient is wanted. ln_w/ln_b are read only
+    when apply_ln. One call counts as one launch, whatever the number of
+    phase kernels and bands; `launches` counts forward launches."""
+    operands = (x, ln_w, ln_b, w1, b1, dw_w, dw_b, w2, b2)
+    if x.device.type == "cpu":
+        return conv_glu_ref(*operands, apply_ln=apply_ln)
+    if wants_grad(operands if apply_ln else (x, *operands[3:])):
+        return ConvGluFunction.apply(apply_ln, *operands)
+    return _launch_counted(*operands, apply_ln=apply_ln)
 
 
 conv_glu.launches = 0

@@ -5,6 +5,12 @@ fused_wmsa_block_v4`. `wmsa_block` launches the CUDA kernel
 (csrc/wmsa_block.cu) for CUDA tensors and runs `wmsa_block_ref`, the plain
 PyTorch statement of the same math, for CPU tensors.
 
+Training: where grad mode is on and an operand requires grad, the CUDA call
+goes through `WmsaBlockFunction` (kernel forward, gradients by a recompute
+through `wmsa_block_ref` in f32: the counterpart of
+`wmsa_block_v4_trainable`). Differentiable: x, the LN weight and bias,
+res_scale, Wqkv, bqkv, Wproj, bproj and the relative-position table.
+
 Weights are in torch layout (the reference's state dict): wqkv (3C, C)
 packed [q | k | v], each head-major (channel = head * head_dim + d);
 wproj (C, C); rel (heads, 15, 15).
@@ -19,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from dcae_tpu_torch.ops.kernels import _build
+from dcae_tpu_torch.ops.kernels._grad import recompute_backward, wants_grad
 
 WINDOW = 8
 
@@ -181,18 +188,45 @@ def launch(what: str, x, params, *, heads: int, shifted: bool
     return out
 
 
+class WmsaBlockFunction(torch.autograd.Function):
+    """The wmsa_block kernel with gradients. forward launches the kernel
+    and saves the operands alone; backward differentiates wmsa_block_ref
+    on f32 copies and returns each gradient in its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, heads: int, shifted: bool, x, *params):
+        ctx.heads, ctx.shifted = heads, shifted
+        ctx.save_for_backward(x, *params)
+        return _launch_counted(x, params, heads, shifted)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = recompute_backward(
+            wmsa_block_ref, ctx.saved_tensors, ctx.needs_input_grad[2:],
+            grad_out, heads=ctx.heads, shifted=ctx.shifted)
+        return (None, None, *grads)
+
+
+def _launch_counted(x, params, heads: int, shifted: bool) -> torch.Tensor:
+    out = launch("wmsa_block", x, params, heads=heads, shifted=shifted)
+    wmsa_block.launches += 1
+    return out
+
+
 def wmsa_block(x, ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel, *,
                heads: int, shifted: bool) -> torch.Tensor:
     """out = rs * x + WMSA(LN x) on 8x8 windows (shifted SW windows when
     `shifted`). x: (B, H, W, C) with H, W multiples of 8. CPU tensors run
-    wmsa_block_ref; CUDA tensors launch the kernel or raise."""
+    wmsa_block_ref; CUDA tensors launch the kernel or raise, through
+    WmsaBlockFunction where a gradient is wanted. `launches` counts
+    forward launches."""
     params = (ln_w, ln_b, rs, wqkv, bqkv, wproj, bproj, rel)
     check_windows("wmsa_block", x, heads)
     if x.device.type == "cpu":
         return wmsa_block_ref(x, *params, heads=heads, shifted=shifted)
-    out = launch("wmsa_block", x, params, heads=heads, shifted=shifted)
-    wmsa_block.launches += 1
-    return out
+    if wants_grad((x, *params)):
+        return WmsaBlockFunction.apply(heads, shifted, x, *params)
+    return _launch_counted(x, params, heads, shifted)
 
 
 wmsa_block.launches = 0

@@ -13,6 +13,7 @@ dicts load unchanged.
 from __future__ import annotations
 
 import math
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +57,25 @@ def Dense(in_features: int, out_features: int, bias: bool = True
 def LayerNorm(dim: int) -> nn.LayerNorm:
     """LayerNorm over the trailing axis, torch eps (1e-5)."""
     return nn.LayerNorm(dim, eps=1e-5)
+
+
+def pad_spatial(x: torch.Tensor, multiple: int
+                ) -> Tuple[torch.Tensor, Tuple[int, int, int, int]]:
+    """Center-pad NHWC H, W with zeros up to a multiple; returns (padded,
+    (left, right, top, bottom)): the eval protocol's padding."""
+    h, w = x.shape[1], x.shape[2]
+    new_h = -(-h // multiple) * multiple
+    new_w = -(-w // multiple) * multiple
+    t = (new_h - h) // 2
+    b = new_h - h - t
+    l = (new_w - w) // 2
+    r = new_w - w - l
+    return F.pad(x, (0, 0, l, r, t, b)), (l, r, t, b)
+
+
+def crop_spatial(x: torch.Tensor, padding: Sequence[int]) -> torch.Tensor:
+    l, r, t, b = padding
+    return x[:, t: x.shape[1] - b, l: x.shape[2] - r, :]
 
 
 @torch.no_grad()

@@ -121,14 +121,20 @@ def test_bin_parses_with_jax_container(codecs, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke, import neither jax nor
-    anything of dcae_tpu."""
+    """Every module of the port, the training sub-packages included, and
+    chip_smoke, import neither jax nor anything of dcae_tpu."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import dcae_tpu_torch\n"
-        "for m in pkgutil.walk_packages(dcae_tpu_torch.__path__,\n"
-        "                               'dcae_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    dcae_tpu_torch.__path__, 'dcae_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for want in ('train.loop', 'train.step', 'train.state',\n"
+        "             'train.losses', 'data.datasets', 'utils.metrics',\n"
+        "             'utils.checkpoint', 'utils.logging', 'utils.convert',\n"
+        "             'tools.train', 'eval_lib'):\n"
+        "    assert 'dcae_tpu_torch.' + want in names, want\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dcae_tpu' or m.startswith('dcae_tpu.')]\n"

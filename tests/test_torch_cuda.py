@@ -455,3 +455,160 @@ def test_rans_lanes_wrappers_refuse_wrong_operands(card):
                              torch.zeros((), **i32), torch.zeros(4, **i32),
                              idx, torch.zeros(1 << 16, **i32),
                              torch.zeros(1 << 16, **i32), 4)
+
+
+# ------------------------------------------------- gradients on the card --
+# The wrappers' autograd Functions: kernel forward, recompute backward. A
+# module's parameter gradients on the card against the same module on the
+# CPU (plain versions) to the forward's tolerance, f32.
+
+def _grads_on(module_factory, x, device):
+    torch.manual_seed(0)
+    m = module_factory().to(device)
+    xin = x.to(device).requires_grad_(True)
+    out = m(xin)
+    out.square().mean().backward()
+    return out, xin.grad, {n: p.grad for n, p in m.named_parameters()}
+
+
+def _same_grads(module_factory, x, counter, launches, skip=()):
+    """Seeded weights, then the module's input and parameter gradients on
+    the card against the CPU's; `counter` must count `launches` forward
+    launches; parameter names ending in one of `skip` are left out."""
+    from dcae_tpu_torch.ops.layers import reset_layer
+
+    def seeded():
+        m = module_factory()
+        gen = torch.Generator().manual_seed(3)
+        for sub in m.modules():
+            reset_layer(sub, gen)
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                if "relative_position" in n or n.endswith("scale"):
+                    p.copy_(1 + 0.02 * torch.randn(p.shape, generator=gen))
+        return m
+
+    # full-f32 products on the card, as the trainer sets them (cuDNN's
+    # convolutions default to TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    before = counter.launches
+    out, gx, grads = _grads_on(seeded, x, "cuda")
+    assert counter.launches == before + launches
+    assert out.grad_fn is not None
+    _, gx_cpu, grads_cpu = _grads_on(seeded, x, "cpu")
+    assert _rel_err(gx.cpu(), gx_cpu) <= TOL["float32"]
+    for n, g in grads.items():
+        assert g is not None and bool(torch.isfinite(g).all()), n
+        if not n.endswith(tuple(skip)):
+            assert _rel_err(g.cpu(), grads_cpu[n]) <= TOL["float32"], n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_block_parameter_gradients_match_cpu(card, fused):
+    """A window-8 Swin block at stage-3 width: wmsa_block (fused) or
+    wmsa_attention, and the routed conv_glu, each through its Function."""
+    from dcae_tpu_torch.ops.blocks import ResScaleConvolutionGateBlock
+
+    x = torch.from_numpy(np.random.default_rng(30).normal(
+        size=(2, 16, 16, 256)).astype(np.float32))
+    counter = wm.wmsa_block if fused else wa.wmsa_attention
+    glu_before = cg.conv_glu.launches
+    _same_grads(lambda: ResScaleConvolutionGateBlock(
+        256, 32, 8, shifted=True, fused_attention_block=fused), x, counter,
+        1)
+    assert cg.conv_glu.launches == glu_before + 1
+
+
+@pytest.mark.cuda
+def test_glu_parameter_gradients_match_cpu(card):
+    from dcae_tpu_torch.ops.blocks import ConvolutionalGLU
+    from torch import nn
+
+    class Glu(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.ln = nn.LayerNorm(128)
+            self.mlp = ConvolutionalGLU(128, 512)
+
+        def forward(self, x):
+            return self.mlp.fused(x, self.ln)
+
+    x = torch.from_numpy(np.random.default_rng(31).normal(
+        size=(2, 9, 11, 128)).astype(np.float32))
+    _same_grads(Glu, x, cg.conv_glu, 1)
+
+
+@pytest.mark.cuda
+def test_dictionary_attention_parameter_gradients_match_cpu(card):
+    """The DCA module at full width: its GLU (C=640, h=1280) goes through
+    conv_glu's Function."""
+    from dcae_tpu_torch.ops.dictionary import DictionaryCrossAttention
+    from torch import nn
+
+    class Dca(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.dca = DictionaryCrossAttention(320, 320)
+            self.dt = nn.Parameter(torch.empty(128, 640))
+
+        def forward(self, x):
+            return self.dca(x, self.dt)
+
+    def factory():
+        m = Dca()
+        with torch.no_grad():
+            m.dt.copy_(torch.randn(m.dt.shape,
+                                   generator=torch.Generator()
+                                   .manual_seed(1)))
+        return m
+
+    x = torch.from_numpy(np.random.default_rng(32).normal(
+        size=(1, 8, 8, 320)).astype(np.float32))
+    # the key bias's true gradient is 0 (softmax ignores a shift of every
+    # score): both devices hold rounding noise there, so it is left out
+    _same_grads(factory, x, cg.conv_glu, 1, skip=("dca.k.bias",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["wmsa_block", "wmsa_attention",
+                                    "conv_glu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_requires_grad_input_yields_grad_fn(card, kernel, dtype):
+    """Each public wrapper returns a differentiable output for an input
+    that requires grad (and none under no_grad), with gradients in the
+    operands' dtype."""
+    rng = np.random.default_rng(33)
+    dt = getattr(torch, dtype)
+    C, heads, h = 128, 4, 256
+    b = C ** -0.5
+    x = torch.from_numpy(rng.normal(size=(1, 8, 16, C)).astype(
+        np.float32)).cuda().to(dt).requires_grad_(True)
+    vec = lambda r, s: 0.1 * r.normal(size=s)            # noqa: E731
+    mat = lambda r, s: _uniform(r, s, b)                 # noqa: E731
+    if kernel == "conv_glu":
+        args = _args(rng, dt, [((C,), vec), ((C,), vec), ((2 * h, C), mat),
+                               ((2 * h,), mat), ((h, 1, 3, 3), mat),
+                               ((h,), mat), ((C, h), mat), ((C,), mat)])
+        fn, kw = cg.conv_glu, {}
+    else:
+        shapes = [((3 * C, C), mat), ((3 * C,), mat), ((C, C), mat),
+                  ((C,), mat), ((heads, 15, 15), vec)]
+        if kernel == "wmsa_block":
+            shapes = [((C,), vec)] * 3 + shapes
+            fn = wm.wmsa_block
+        else:
+            fn = wa.wmsa_attention
+        args = _args(rng, dt, shapes)
+        kw = dict(heads=heads, shifted=True)
+    args[-1].requires_grad_(True)
+    with torch.no_grad():
+        assert fn(x, *args, **kw).grad_fn is None
+    out = fn(x, *args, **kw)
+    assert out.grad_fn is not None and out.dtype == dt
+    out.float().sum().backward()
+    for t in (x, args[-1]):
+        assert t.grad is not None and t.grad.dtype == dt
+        assert bool(torch.isfinite(t.grad.float()).all())
+    assert args[0].grad is None
