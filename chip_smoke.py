@@ -9,17 +9,18 @@ Phases, in order:
   build      nvcc builds every kernel of csrc/ from this checkout (one
              compiler per source, all at once) into build/.
   kernels    each kernel against its plain PyTorch version on the card at
-             the main path's shapes (batch 2 of 768x512), with times, the
-             least time the card could take (bound) and, for wmsa_block and
-             wmsa_attention, an SDPA call as yardstick; conv_glu must be
-             bitwise repeatable in both dtypes. The two lane-coder kernels
-             (rans_lanes_decode / rans_lanes_encode) code 5 chained slices
-             The three wrappers' gradient Functions follow, in f32 at the
-             training shapes (batch 8 of 256x256): forward against the plain
-             version, gradients through the Function against autograd
-             through the plain version, forward and backward times (and the
-             gradients of one bf16 call a kernel).
-             The two lane-coder kernels code 5 chained slices
+             the main path's shapes (batch 2 of 768x512), with device times,
+             the least time the card could take (bound; for f32 kernels
+             that run 3xTF32 also that ceiling) and, for wmsa_block and
+             wmsa_attention, an SDPA call as yardstick; each must be
+             bitwise repeatable in both dtypes. The three wrappers'
+             gradient Functions follow, in f32 at the training shapes
+             (batch 8 of 256x256): forward against the plain version,
+             gradients through the Function against autograd through the
+             plain version, forward and backward times, SDPA for the wmsa
+             kernels (and the gradients of one bf16 call a kernel).
+             The two lane-coder kernels (rans_lanes_decode /
+             rans_lanes_encode) code 5 chained slices
              of 196,608 symbols on 512 lanes under the codec's Gaussian
              bank and must equal their plain versions AND the C++ host
              coder exactly; a flipped word or a bumped state must give
@@ -64,8 +65,10 @@ Phases, in order:
              steps of the attention-only configuration, the launch counts of
              each; the loss must be finite at every step and lower after
              than before; a tiny step on the card must equal the same step
-             on the CPU; then one tiny run_training epoch on generated PNGs
-             with a checkpoint reload.
+             on the CPU within bars that CPU steps with noise on the window
+             outputs calibrate; then one tiny run_training epoch on
+             generated PNGs with a checkpoint reload (the tiny model with
+             window-8 stacks 96 channels wide: TINY_W8).
   profile    (only with --phase profile) device time of one slice run by
              kernel, from torch.profiler: staged, shipped-index and
              interleaved pairs; then of one full-width training step.
@@ -130,6 +133,22 @@ CONV_GLU_TRAIN_CASES = [
 # the same f32 backward on forwards 1e-6 apart; bf16 differentiates the
 # plain version without its bf16 rounding points
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the tiny model with window-8 stacks 96 channels wide, head_dim 8 (the
+# tiny config's own head_dim 4 is not a width the wmsa kernels take), for
+# the card-vs-CPU training step and the tiny run_training
+TINY_W8 = dict(window_size=8, hyper_window_size=4, feature_dim=(96, 96, 96),
+               head_dim=(8,) * 6)
+# The tiny card-vs-CPU step's gradient bars, over the parameter tensors'
+# max|card - CPU| / max|CPU|: their 90th percentile and their largest. A
+# forward that is not f32-exact flips ReLU gates that lie that close to
+# zero, which moves a few tensors' gradients by ~2e-3 of their max at
+# errors from 1e-6 to 1e-5, so the largest is held loosely; the percentile
+# grows with the error. Each run reads them on CPU steps whose window
+# outputs carry seeded noise of e x their max: at the forward's own bar
+# (witness, must pass: p90 1.5e-4 on an H100 machine's CPU) and at 10x it
+# (control, must fail: 5.5e-4); the kernel's step read 4e-6 (PERF.md).
+TINY_GRAD_P90, TINY_GRAD_MAX = 3e-4, 1e-2
+TINY_NOISE = {"witness": TOL["float32"], "control": 10 * TOL["float32"]}
 # the interleaved profile at batch 2 of 768x512: symbols a slice
 # (2 x 48 x 32 x 64), slices, and the lanes _auto_lanes picks for them
 RANS_N, RANS_SLICES, RANS_LANES = 196_608, 5, 512
@@ -148,13 +167,24 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() over `iters` launches (CUDA events)."""
+    """Mean device time of fn() over `iters` launches (CUDA events). The
+    launches queue behind a sleep kernel that outlasts their enqueue, so
+    they run back to back and the host's time to enqueue them (a wrapper's
+    checks and allocations, ~0.1 ms: more than a small kernel runs) does
+    not count."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0     # bounds one call's enqueue
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # cycles at no more than 2 GHz: at least this many seconds
+    torch.cuda._sleep(int((2 * iters * call_s + 1e-3) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -172,11 +202,28 @@ def bound(nbytes: float, flops: float, dtype: str):
                                  "operations")
 
 
-def rates(row: dict, flops: float) -> None:
+def rates(row: dict, flops: float, tf32x3_flops: float = 0.0) -> None:
     """Add the achieved TFLOP/s and the share of the bound (bound / time)
-    to a kernel row."""
+    to a kernel row. An f32 kernel whose products run 3xTF32 on the tensor
+    cores (`tf32x3_flops` of its operations) also gets its ceiling, three
+    tf32 products an f32 one at TF32_FLOPS, and its share of the lower of
+    bound and ceiling (least_share): a tensor-core kernel can beat the f32
+    FMA bound, never that ceiling."""
     row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
     row["bound_share"] = row["bound_ms"] / row["ms"]
+    if tf32x3_flops:
+        row["tf32x3_ceiling_ms"] = 3 * tf32x3_flops / TF32_FLOPS * 1e3
+        row["least_share"] = min(row["bound_ms"],
+                                 row["tf32x3_ceiling_ms"]) / row["ms"]
+
+
+def share_text(row: dict) -> str:
+    """The shares of a row for its printed line."""
+    text = f"{100 * row['bound_share']:.1f}% of bound"
+    if "tf32x3_ceiling_ms" in row:
+        text += (f", 3xTF32 ceiling {row['tf32x3_ceiling_ms']:.4f} ms, "
+                 f"{100 * row['least_share']:.1f}% of the lower")
+    return text
 
 
 def rel_err(got, want) -> float:
@@ -237,7 +284,7 @@ def sdpa_yardstick(x, p, heads, shifted):
     nh, nw, hd = H // 8, W // 8, C // heads
     q, k, v = (torch.randn((B, nh * nw, heads, 64, hd), device=x.device,
                            dtype=x.dtype) for _ in range(3))
-    bias = relative_position_bias(p[7].float())           # (heads, 64, 64)
+    bias = relative_position_bias(p[-1].float())          # (heads, 64, 64)
     if shifted:
         mask = torch.as_tensor(shifted_window_mask(nh, nw), device=x.device)
         bias = bias[None].masked_fill(mask[:, None], float("-inf"))[None]
@@ -269,10 +316,12 @@ def kernel_phase(gen) -> dict:
                 kw = dict(heads=heads, shifted=shifted)
                 got = fn(x, *p, **kw)
                 want = ref(x, *p, **kw)
+                again = fn(x, *p, **kw)
                 torch.cuda.synchronize()
                 err = rel_err(got, want)
+                repeat = bool(torch.equal(got, again))
                 ok = bool(torch.isfinite(got.float()).all()) and \
-                    err <= TOL[dtype]
+                    err <= TOL[dtype] and repeat
                 tokens = BATCH * H * W
                 esize = x.element_size()
                 nbytes = 2 * x.numel() * esize + \
@@ -283,22 +332,23 @@ def kernel_phase(gen) -> dict:
                 row = {"case": f"{label} {dtype}", "rel_err": err,
                        "max_abs_err": float((got.float() - want.float())
                                             .abs().max()),
-                       "tol": TOL[dtype], "ok": ok,
+                       "tol": TOL[dtype], "bitwise_repeat": repeat, "ok": ok,
                        "main_path": dtype == "bfloat16", "per_run": per_run,
                        "ms": time_ms(lambda: fn(x, *p, **kw)),
                        "plain_ms": time_ms(lambda: ref(x, *p, **kw),
                                            iters=3, warmup=1),
                        "library_ms": time_ms(lib),
                        "bound_ms": b_ms, "bound_by": b_by}
-                rates(row, flops)
+                # f32: all four products run 3xTF32
+                rates(row, flops, flops if dtype == "float32" else 0.0)
                 print(f"{name} {row['case']}: rel err {err:.3e} (tol "
-                      f"{TOL[dtype]:.0e}) ms {row['ms']:.4f} plain "
-                      f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.4f} "
-                      f"bound {b_ms:.4f} ({b_by}) {row['tflops']:.1f} "
-                      f"TFLOP/s, {100 * row['bound_share']:.1f}% of bound",
+                      f"{TOL[dtype]:.0e}) bitwise repeat {repeat} ms "
+                      f"{row['ms']:.4f} plain {row['plain_ms']:.3f} sdpa "
+                      f"{row['library_ms']:.4f} bound {b_ms:.4f} ({b_by}) "
+                      f"{row['tflops']:.1f} TFLOP/s, {share_text(row)}",
                       flush=True)
                 results[name].append(row)
-                del x, p, got, want, lib
+                del x, p, got, want, again, lib
     for label, H, W, C, hidden, dtype, per_run in CONV_GLU_CASES:
         x, p = conv_glu_inputs(H, W, C, hidden, getattr(torch, dtype), gen)
         got = conv_glu(x, *p)
@@ -322,18 +372,14 @@ def kernel_phase(gen) -> dict:
                "plain_ms": time_ms(lambda: conv_glu_ref(x, *p), iters=3,
                                    warmup=1),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        rates(row, flops)
-        extra = ""
-        if dtype == "float32":
-            # the f32 products run as 3xTF32: three tensor-core products
-            row["tf32x3_ceiling_ms"] = 3 * tokens * 6 * C * hidden / \
-                TF32_FLOPS * 1e3
-            extra = f", 3xTF32 ceiling {row['tf32x3_ceiling_ms']:.4f} ms"
+        # f32: fc1 and fc2 run 3xTF32 (the gate on the FMA units)
+        rates(row, flops,
+              tokens * 6 * C * hidden if dtype == "float32" else 0.0)
         print(f"conv_glu {row['case']}: rel err {err:.3e} (tol "
               f"{TOL[dtype]:.0e}) bitwise repeat {repeat} ms "
               f"{row['ms']:.4f} plain {row['plain_ms']:.3f} bound "
-              f"{b_ms:.4f} ({b_by}){extra} {row['tflops']:.1f} TFLOP/s, "
-              f"{100 * row['bound_share']:.1f}% of bound", flush=True)
+              f"{b_ms:.4f} ({b_by}) {row['tflops']:.1f} TFLOP/s, "
+              f"{share_text(row)}", flush=True)
         results["conv_glu"].append(row)
         del x, p, got, want, again
     bad = [r["case"] for rows in results.values() for r in rows
@@ -390,10 +436,12 @@ def grad_check(fn, ref, x, p, kw, gen) -> tuple:
 
 def train_kernel_rows(results: dict, gen) -> None:
     """The three wrappers in f32 at the training shapes: forward against
-    the plain version (TOL), gradients through the autograd Function
-    against autograd through the plain version (GRAD_TOL), forward and
-    backward times, the f32 bound; and the gradients of one bf16 call a
-    kernel. Rows join `results` with train = True."""
+    the plain version (TOL) and bitwise repeatable, gradients through the
+    autograd Function against autograd through the plain version
+    (GRAD_TOL), forward and backward times, the f32 bound, the 3xTF32
+    ceiling and, for the wmsa kernels, an SDPA call on the same windows;
+    and the gradients of one bf16 call a kernel. Rows join `results` with
+    train = True."""
     import torch
     from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu, conv_glu_ref
     from dcae_tpu_torch.ops.kernels.wmsa_attention import (
@@ -414,35 +462,42 @@ def train_kernel_rows(results: dict, gen) -> None:
                                          TRAIN_BATCH)
 
     # (kernel, wrapper, plain version, label, launches a step, inputs of a
-    # dtype, static arguments, operations)
+    # dtype, static arguments, operations, of them in 3xTF32 products)
     cases = []
     for name, fn, ref, skip in (
             ("wmsa_block", wmsa_block, wmsa_block_ref, 0),
             ("wmsa_attention", wmsa_attention, wmsa_attention_ref, 3)):
         for label, H, W, C, heads, shifted, per_step in WMSA_TRAIN_CASES:
+            flops = TRAIN_BATCH * H * W * (8 * C * C + 4 * 64 * C)
             cases.append((name, fn, ref, f"train {label}", per_step,
                           wmsa_case(H, W, C, heads, skip),
-                          dict(heads=heads, shifted=shifted),
-                          TRAIN_BATCH * H * W * (8 * C * C + 4 * 64 * C)))
+                          dict(heads=heads, shifted=shifted), flops, flops))
     for label, H, W, C, hidden, per_step in CONV_GLU_TRAIN_CASES:
+        tokens = TRAIN_BATCH * H * W
         cases.append(("conv_glu", conv_glu, conv_glu_ref, f"train {label}",
                       per_step, glu_case(H, W, C, hidden), {},
-                      TRAIN_BATCH * H * W * (6 * C * hidden + 18 * hidden)))
+                      tokens * (6 * C * hidden + 18 * hidden),
+                      tokens * 6 * C * hidden))
     # the one shape a kernel whose gradients are also held in bf16
     bf16_too = {"wmsa_block": "train stage3 SW",
                 "wmsa_attention": "train stage3 SW",
                 "conv_glu": "train stage3 GLU"}
     bad = []
-    for name, fn, ref, label, per_step, inputs, kw, flops in cases:
+    for name, fn, ref, label, per_step, inputs, kw, flops, tf_flops in cases:
         x, p = inputs(torch.float32)
         with torch.no_grad():
             got, want = fn(x, *p, **kw), ref(x, *p, **kw)
+            again = fn(x, *p, **kw)
             torch.cuda.synchronize()
             err = rel_err(got, want)
             abs_err = float((got - want).abs().max())
+            repeat = bool(torch.equal(got, again))
             ms = time_ms(lambda: fn(x, *p, **kw))
             plain_ms = time_ms(lambda: ref(x, *p, **kw), iters=2, warmup=1)
-        del got, want
+            lib_ms = time_ms(sdpa_yardstick(x, p, kw["heads"],
+                                            kw["shifted"])) \
+                if name != "conv_glu" else None
+        del got, want, again
         g_err, g, leaves = grad_check(fn, ref, x, p, kw, gen)
         bwd_ms = time_backward_ms(lambda: fn(*leaves, **kw), g)
         ref_leaves = [t.detach().clone().requires_grad_(True)
@@ -451,22 +506,24 @@ def train_kernel_rows(results: dict, gen) -> None:
                                         iters=2)
         nbytes = (2 * x.numel() + sum(t.numel() for t in p)) * 4
         b_ms, b_by = bound(nbytes, flops, dtype)
-        ok = err <= TOL[dtype] and g_err <= GRAD_TOL[dtype]
+        ok = err <= TOL[dtype] and g_err <= GRAD_TOL[dtype] and repeat
         row = {"case": f"{label} {dtype}", "rel_err": err,
                "max_abs_err": abs_err, "tol": TOL[dtype],
+               "bitwise_repeat": repeat,
                "grad_rel_err": g_err, "grad_tol": GRAD_TOL[dtype], "ok": ok,
                "main_path": False, "train": True, "per_step": per_step,
                "ms": ms, "backward_ms": bwd_ms, "plain_ms": plain_ms,
-               "plain_backward_ms": plain_bwd_ms, "library_ms": None,
+               "plain_backward_ms": plain_bwd_ms, "library_ms": lib_ms,
                "bound_ms": b_ms, "bound_by": b_by}
-        rates(row, flops)
+        rates(row, flops, tf_flops)
+        lib = "" if lib_ms is None else f" sdpa {lib_ms:.4f}"
         print(f"{name} {row['case']}: rel err {err:.3e} (tol "
-              f"{TOL[dtype]:.0e}) grad rel err {g_err:.3e} (tol "
-              f"{GRAD_TOL[dtype]:.0e}) forward ms {ms:.4f} backward "
-              f"{bwd_ms:.3f} plain forward {plain_ms:.3f} plain backward "
-              f"{plain_bwd_ms:.3f} bound {b_ms:.4f} ({b_by}) "
-              f"{row['tflops']:.1f} TFLOP/s, "
-              f"{100 * row['bound_share']:.1f}% of bound", flush=True)
+              f"{TOL[dtype]:.0e}) bitwise repeat {repeat} grad rel err "
+              f"{g_err:.3e} (tol {GRAD_TOL[dtype]:.0e}) forward ms "
+              f"{ms:.4f} backward {bwd_ms:.3f} plain forward "
+              f"{plain_ms:.3f} plain backward {plain_bwd_ms:.3f}{lib} bound "
+              f"{b_ms:.4f} ({b_by}) {row['tflops']:.1f} TFLOP/s, "
+              f"{share_text(row)}", flush=True)
         results[name].append(row)
         if not ok:
             bad.append(f"{name} {row['case']}")
@@ -711,6 +768,8 @@ def kernel_summary(results: dict, launches: dict,
                                           "library_ms", "bound_ms",
                                           "bound_by", "rel_err", "per_run",
                                           "tflops", "bound_share",
+                                          "tf32x3_ceiling_ms",
+                                          "least_share", "bitwise_repeat",
                                           "host_coder_ms", "chain_steps",
                                           "bound_bytes",
                                           "bits_per_symbol", "train",
@@ -730,6 +789,10 @@ def kernel_summary(results: dict, launches: dict,
                                  ("backward_ms", "backward_ms"),
                                  ("plain_forward_ms", "plain_ms"),
                                  ("bound_ms", "bound_ms"))}
+            for key in ("library_ms", "tf32x3_ceiling_ms"):
+                if all(r.get(key) is not None for r in train):
+                    out[-1]["train_step"][key] = sum(
+                        r[key] * r["per_step"] for r in train)
             out[-1]["train_step"]["launches"] = train_launches.get(name) \
                 if train_launches else None
     return out
@@ -1673,20 +1736,27 @@ def tiny_step_card_vs_cpu() -> dict:
     same step on the CPU (the plain versions): same seeded weights, same
     batch and, since the two devices' generators draw different numbers,
     the same noise (noise_quantize replaced, for this check, by one that
-    adds a seeded array made on the host). Loss within 1e-5 relative and
-    every gradient within 1e-4 of its largest entry (9e-8 and 7.8e-6
-    measured on an H100; the zero-gradient key biases: within 1e-5 of the
-    key weight's gradient); the parameters after the step within 2.1
-    learning rates everywhere (Adam's first step moves a weight by at most
-    one) and within 0.05 of one for 99%."""
+    adds a seeded array made on the host). Every window-attention launch of
+    the card step is also held against its plain version on its own inputs
+    (TOL). Bars (`tiny_step_passes`): loss within 1e-5 relative; the
+    parameters after the step within 2.1 learning rates everywhere (Adam's
+    first step moves a weight by at most one) and within 0.05 of one for
+    99%; the zero-gradient key biases within 1e-5 of the key weight's
+    gradient; the gradients within TINY_GRAD_P90 / TINY_GRAD_MAX. The same
+    bars read three CPU steps whose window outputs carry seeded uniform
+    noise of e times their max: e = the kernel's largest forward error in
+    this step (reported), e = TOL (must pass) and e = 10 TOL (the control:
+    must fail the gradient bars)."""
     import torch
     from dcae_tpu_torch.config import DCAEConfig
     from dcae_tpu_torch.entropy import ops
+    from dcae_tpu_torch.ops.kernels import wmsa_attention as wa
+    from dcae_tpu_torch.ops.kernels import wmsa_block as wm
     from dcae_tpu_torch.train.state import (create_train_state,
                                             make_optimizer)
     from dcae_tpu_torch.train.step import make_train_step
 
-    cfg = DCAEConfig.tiny(window_size=8, hyper_window_size=4)
+    cfg = DCAEConfig.tiny(**TINY_W8)
     batch = train_batch(2, 128, seed=3)
     lr = 1e-4
     tx = make_optimizer(lr, 1e-3, 1.0)
@@ -1697,44 +1767,109 @@ def tiny_step_card_vs_cpu() -> dict:
                            .manual_seed(seed)) - 0.5
         return x + noise.to(x.device)
 
+    def step(dev):
+        model = seeded_model(cfg, dev)
+        state = create_train_state(model, tx, torch.Generator(device=dev))
+        _, metrics = make_train_step(model, tx, LMBDA)(
+            state, torch.from_numpy(batch).to(dev))
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: p.grad.cpu() for n, p in model.named_parameters()},
+                {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+    refs = {wm: wm.wmsa_block_ref, wa: wa.wmsa_attention_ref}
+    launches = {wm: wm.launch, wa: wa.launch}
+    fwd_err = []
+
+    def recorded(mod):
+        def launch(what, x, params, *, heads, shifted):
+            out = launches[mod](what, x, params, heads=heads, shifted=shifted)
+            with torch.no_grad():
+                fwd_err.append(rel_err(out, refs[mod](
+                    x, *params, heads=heads, shifted=shifted)))
+            return out
+        return launch
+
+    def noisy(mod, eps):
+        calls = [0]
+
+        def ref(x, *params, heads, shifted):
+            out = refs[mod](x, *params, heads=heads, shifted=shifted)
+            calls[0] += 1
+            u = torch.rand(out.shape, generator=torch.Generator()
+                           .manual_seed(calls[0])) * 2 - 1
+            return out + (eps * out.detach().abs().max() * u).detach()
+        return ref
+
+    def cpu_step_with_noise(eps):
+        wm.wmsa_block_ref, wa.wmsa_attention_ref = noisy(wm, eps), \
+            noisy(wa, eps)
+        try:
+            return step("cpu")
+        finally:
+            wm.wmsa_block_ref, wa.wmsa_attention_ref = refs[wm], refs[wa]
+
     real, ops.noise_quantize = ops.noise_quantize, fixed_noise
     try:
-        got = {}
-        for dev in ("cpu", "cuda"):
-            model = seeded_model(cfg, dev)
-            state = create_train_state(model, tx,
-                                       torch.Generator(device=dev))
-            _, metrics = make_train_step(model, tx, LMBDA)(
-                state, torch.from_numpy(batch).to(dev))
-            got[dev] = ({k: float(v) for k, v in metrics.items()},
-                        {n: p.grad.cpu() for n, p in
-                         model.named_parameters()},
-                        {n: p.detach().cpu() for n, p in
-                         model.named_parameters()})
+        m_cpu, g_cpu, p_cpu = step("cpu")
+        wm.launch, wa.launch = recorded(wm), recorded(wa)
+        try:
+            card = step("cuda")
+        finally:
+            wm.launch, wa.launch = launches[wm], launches[wa]
+        if not fwd_err:
+            fail("train: the tiny card step launched no window kernel")
+        eps_kernel = max(fwd_err)
+        runs = {"kernel": card,
+                "witness_at_kernel_error": cpu_step_with_noise(eps_kernel)}
+        runs.update((k, cpu_step_with_noise(e))
+                    for k, e in TINY_NOISE.items())
     finally:
         ops.noise_quantize = real
-    (m_cpu, g_cpu, p_cpu), (m_card, g_card, p_card) = got["cpu"], got["cuda"]
-    loss_err = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
-    grad_err, worst = 0.0, ""
-    for n in g_cpu:
-        if n.endswith(".k.bias"):       # true gradient 0: noise on both
-            scale = float(g_cpu[n[:-4] + "weight"].abs().max())
-            if float(g_card[n].abs().max()) > 1e-5 * scale:
-                fail(f"train: {n} holds more than rounding noise")
-            continue
-        err = rel_err(g_card[n], g_cpu[n])
-        if err > grad_err:
-            grad_err, worst = err, n
-    diff = torch.cat([(p_card[n] - p_cpu[n]).abs().flatten() for n in p_cpu])
-    p_max = float(diff.max()) / lr
-    p_99 = float(torch.quantile(diff, 0.99)) / lr
-    res = {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
-           "grad_worst": worst, "param_max_diff_in_lr": p_max,
-           "param_p99_diff_in_lr": p_99, "loss": m_card["loss"]}
+
+    def compare(m, g, p) -> dict:
+        errs, key_bias_ok = {}, True
+        for n in g_cpu:
+            if n.endswith(".k.bias"):       # true gradient 0: noise on both
+                scale = float(g_cpu[n[:-4] + "weight"].abs().max())
+                key_bias_ok &= float(g[n].abs().max()) <= 1e-5 * scale
+                continue
+            errs[n] = rel_err(g[n], g_cpu[n])
+        worst = max(errs, key=errs.get)
+        diff = torch.cat([(p[n] - p_cpu[n]).abs().flatten() for n in p_cpu])
+        return {"loss_rel_err": max(abs(m[k] - m_cpu[k]) / abs(m_cpu[k])
+                                    for k in m_cpu),
+                "grad_rel_err": errs[worst], "grad_worst": worst,
+                "grad_p90": float(np.quantile(list(errs.values()), 0.9)),
+                "key_bias_ok": bool(key_bias_ok),
+                "param_max_diff_in_lr": float(diff.max()) / lr,
+                "param_p99_diff_in_lr": float(torch.quantile(diff, 0.99))
+                / lr}
+
+    res = {k: compare(*r) for k, r in runs.items()}
+    res["kernel"]["forward_rel_err"] = eps_kernel
+    res["kernel"]["window_launches"] = len(fwd_err)
     print("train tiny card vs CPU: " + json.dumps(res), flush=True)
-    if loss_err > 1e-5 or grad_err > 1e-4 or p_max > 2.1 or p_99 > 0.05:
+    if eps_kernel > TOL["float32"]:
+        fail(f"train: a window kernel launch of the tiny step is "
+             f"{eps_kernel:.3e} from its plain version")
+    if not tiny_step_passes(res["kernel"]):
         fail("train: the tiny step on the card differs from the CPU's")
+    if not tiny_step_passes(res["witness"]):
+        fail("train: the tiny step's bars fail a CPU step whose window "
+             "outputs are off by the forward's own bar")
+    control = res["control"]
+    if control["grad_p90"] <= TINY_GRAD_P90 and \
+            control["grad_rel_err"] <= TINY_GRAD_MAX:
+        fail("train: the tiny step's gradient bars pass the control, a "
+             "forward 10x over its bar")
     return res
+
+
+def tiny_step_passes(r: dict) -> bool:
+    return (r["loss_rel_err"] <= 1e-5 and r["param_max_diff_in_lr"] <= 2.1
+            and r["param_p99_diff_in_lr"] <= 0.05 and r["key_bias_ok"]
+            and r["grad_p90"] <= TINY_GRAD_P90
+            and r["grad_rel_err"] <= TINY_GRAD_MAX)
 
 
 def tiny_run_training() -> dict:
@@ -1749,7 +1884,7 @@ def tiny_run_training() -> dict:
     from dcae_tpu_torch.train.loop import TrainOptions, run_training
     from dcae_tpu_torch.utils.checkpoint import load_params_only
 
-    cfg = DCAEConfig.tiny(window_size=8, hyper_window_size=4)
+    cfg = DCAEConfig.tiny(**TINY_W8)
     imgs = synthetic_kodak(10, 192, 256, seed=11)
     with tempfile.TemporaryDirectory(prefix="dcae_smoke_") as tmp:
         for split, part in (("train", imgs[:8]), ("test", imgs[8:])):

@@ -1,8 +1,9 @@
 // Helpers shared by the port's CUDA kernels: f32 <-> storage-type
 // conversion, the bf16 operand rounding the TPU kernels apply at their
-// matmul inputs, warp reductions and LayerNorm, 4-wide f32 loads, the
-// bf16 tensor-core fragment helpers (mma.sync), cp.async copies, and the
-// Hopper warpgroup product (wgmma) with its operand layout.
+// matmul inputs, warp reductions and LayerNorm, the
+// bf16 and 3xTF32 tensor-core fragment helpers (mma.sync), cp.async and
+// bulk copies, and the Hopper warpgroup product (wgmma) with its operand
+// layout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,12 +37,6 @@ __device__ __forceinline__ float op_round(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
-// Four consecutive floats starting at a 4-element-aligned index.
-__device__ __forceinline__ void load4(const float* p, float out[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
 // ---- bf16 tensor-core tile product: D(16x8, f32) += A(16x16) B(16x8).
 // Fragments as the PTX ISA lays out mma.m16n8k16 (lane = 4 * g + q):
 //   A regs {a0..a3}: (row g, k 2q..2q+1), (row g+8, k 2q..), (row g,
@@ -52,6 +47,30 @@ __device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4],
                                                const uint32_t b[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---- 3xTF32 (f32-class products on the tf32 tensor cores).
+// v = hi + lo: hi = v with its low 13 mantissa bits cleared (a tf32
+// value); lo = v - hi exactly, which the tensor core reads as tf32 by
+// dropping its own low 13 bits (an error of at most 2^-20 |v|, the size of
+// the lo * lo term the split leaves out). No conversion instruction:
+// conversions run at a fraction of the FMA rate.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// D(16x8, f32) += A(16x8, tf32) B(8x8, tf32). Fragments (lane = 4 g + q):
+// A {a0..a3} = (g, q), (g+8, q), (g, q+4), (g+8, q+4); B {b0, b1} =
+// (k q, col g), (k q+4, col g); D as for m16n8k16.
+__device__ __forceinline__ void mma_tf32_1688(float d[4], const uint32_t a[4],
+                                              const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

@@ -83,6 +83,8 @@
 
 namespace {
 
+using dcae::mma_tf32_1688;
+using dcae::split_tf32;
 using dcae::to_f;
 
 constexpr int kThreads = 256;
@@ -104,29 +106,6 @@ conv_glu_ln_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
     dcae::warp_layernorm_row<float>(x + (size_t)row * C, ln_w, ln_b,
                                     xn + (size_t)row * C, C, true,
                                     threadIdx.x & 31);
-}
-
-// v = hi + lo: hi = v with its low 13 mantissa bits cleared (a tf32
-// value); lo = v - hi exactly, which the tensor core reads as tf32 by
-// dropping its own low 13 bits (an error of at most 2^-20 |v|, the size of
-// the lo * lo term the split leaves out). No conversion instruction:
-// conversions run at a fraction of the FMA rate.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-// D(16x8, f32) += A(16x8, tf32) B(8x8, tf32). Fragments (lane = 4 g + q):
-// A {a0..a3} = (g, q), (g+8, q), (g, q+4), (g+8, q+4); B {b0, b1} =
-// (k q, col g), (k q+4, col g); D as for m16n8k16.
-__device__ __forceinline__ void mma_tf32_1688(float d[4], const uint32_t a[4],
-                                              const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 constexpr int kGK = 32;           // K-slice of a stage

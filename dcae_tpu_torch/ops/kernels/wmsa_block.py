@@ -149,41 +149,50 @@ def check_windows(what: str, x, heads: int) -> None:
                          f"heads needs H, W multiples of {WINDOW}")
 
 
+def kernel_takes(C: int, heads: int, dtype: torch.dtype) -> bool:
+    """The widths the CUDA kernels take, bf16 and f32 alike: 16-deep
+    products over C (C <= 256, an LN row in a warp's registers) and 8-wide
+    head tiles up to head_dim 32 (csrc/wmsa_block.cu `widths_taken`; the
+    f32 kernel's head groups, `f32_plan`, exist at every such width)."""
+    if dtype not in (torch.float32, torch.bfloat16) or heads <= 0 or \
+            C % heads:
+        return False
+    hd = C // heads
+    return C % 16 == 0 and hd % 8 == 0 and C <= 256 and hd <= 32
+
+
 def launch(what: str, x, params, *, heads: int, shifted: bool
            ) -> torch.Tensor:
     """Launch entry `dcae_{what}` of csrc/wmsa_block.cu on CUDA tensors;
     params in the entry's order, ending in (wqkv, bqkv, wproj, bproj, rel).
-    Raises on any other device and on what the kernel does not take."""
+    Raises ValueError on widths the kernel does not take (whatever the
+    device), on any device but CUDA, and on other operands it does not
+    take."""
+    B, H, W, C = x.shape
+    wqkv, rel = params[-5], params[-1]
+    if not kernel_takes(C, heads, x.dtype):
+        raise ValueError(f"{what}: no {x.dtype} kernel for C={C} with "
+                         f"{heads} heads")
+    if tuple(wqkv.shape) != (3 * C, C) or \
+            tuple(rel.shape) != (heads, 2 * WINDOW - 1, 2 * WINDOW - 1):
+        raise ValueError(f"{what}: unsupported weight shapes")
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {x.device}")
     x = x.contiguous()
     _build.kernel_operands(what, x, params)
-    B, H, W, C = x.shape
-    wqkv, rel = params[-5], params[-1]
     bf16 = x.dtype == torch.bfloat16
-    # f32: CUDA-core kernel, float4 rows; bf16: tensor-core kernel, 16-deep
-    # products over C, 8-wide head tiles, LN rows and head outputs held in
-    # registers (C <= 256, head_dim <= 32)
-    hd = C // heads
-    widths_ok = (C % 16 == 0 and hd % 8 == 0 and C <= 256 and hd <= 32) \
-        if bf16 else C % 4 == 0
-    if not widths_ok or tuple(wqkv.shape) != (3 * C, C) or \
-            tuple(rel.shape) != (heads, 2 * WINDOW - 1, 2 * WINDOW - 1):
-        raise ValueError(f"{what}: unsupported widths or weight shapes")
     entries = _entries()
     if entries["smem"](C, heads, int(bf16)) > _build.SMEM_LIMIT:
         raise ValueError(f"{what}: C={C} needs more shared memory than a "
                          "block has")
     out = torch.empty_like(x)
-    # bf16: the kernel packs [Wqkv; Wproj] here for its bulk copies
-    scratch = torch.empty(4 * C * C, dtype=x.dtype, device=x.device) \
-        if bf16 else None
+    # the kernel packs [Wqkv; Wproj] here for its bulk copies
+    scratch = torch.empty(4 * C * C, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = entries[what](x.data_ptr(), *(p.data_ptr() for p in params),
-                           out.data_ptr(), None if scratch is None else
-                           scratch.data_ptr(), B, H, W, C, heads,
-                           int(shifted), int(bf16), stream)
+                           out.data_ptr(), scratch.data_ptr(), B, H, W, C,
+                           heads, int(shifted), int(bf16), stream)
     _build.check(rc, what)
     return out
 

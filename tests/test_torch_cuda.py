@@ -146,23 +146,66 @@ def _wmsa_call(entry, rng, dt, shape, C, heads, shifted):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("entry", ["wmsa_block", "wmsa_attention"])
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("C,heads", [(96, 12), (144, 9), (256, 8)])
-@pytest.mark.parametrize("shape", [(1, 8, 24), (2, 16, 24), (2, 96, 96)])
-def test_wmsa_bf16_window_counts(card, entry, shifted, C, heads, shape):
-    """3 and 12 windows: fewer than the persistent grid; 288: more than
-    the grid (132 or 264 blocks on an H100) and not a multiple of it, so
-    some blocks walk two windows and others one. At the three path widths
-    (head_dim 8, 16, 32); W and SW; one window row (H = 8), where the
-    bottom row is the only row."""
+@pytest.mark.parametrize("shape", [(1, 8, 24), (2, 16, 24), (2, 64, 64),
+                                   (2, 96, 96)])
+def test_wmsa_window_counts(card, entry, shifted, C, heads, shape, dtype):
+    """3 and 12 windows: fewer than the persistent grid; 128 (the training
+    path's stage 3) and 288: about one grid and more than the grid (132
+    or 264 blocks on an H100), not a multiple of it, so some blocks walk
+    two windows and others one. At the three path widths (head_dim 8, 16,
+    32: f32 head groups of 48, 48, 64 channels); W and SW; one window row
+    (H = 8), where the bottom row is the only row; both dtypes, bitwise
+    repeatable."""
     rng = np.random.default_rng(17)
-    got, want, again = _wmsa_call(entry, rng, torch.bfloat16, shape, C,
-                                  heads, shifted)
-    assert got.dtype == torch.bfloat16
+    dt = getattr(torch, dtype)
+    got, want, again = _wmsa_call(entry, rng, dt, shape, C, heads, shifted)
+    assert got.dtype == dt
     assert bool(torch.isfinite(got.float()).all())
-    assert _rel_err(got, want) <= TOL["bfloat16"]
+    assert _rel_err(got, want) <= TOL[dtype]
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("entry", ["wmsa_block", "wmsa_attention"])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("C,heads", [(16, 2), (32, 4), (48, 6), (64, 2),
+                                     (80, 5), (112, 14), (192, 6),
+                                     (224, 14), (240, 10), (256, 32)])
+def test_wmsa_widths(card, entry, shifted, C, heads, dtype):
+    """Widths off the model's path, taken by the same rule: f32 head groups
+    of 16, 32, 48 and 64 channels (3 gw / 16 = 3, 6, 9, 12 tiles of qkv) at
+    1 to 16 tiles of proj (C / 16), head_dim 8 to 32, 32 heads' bias
+    tables; 12 windows, W and SW, bitwise repeatable."""
+    rng = np.random.default_rng(18)
+    dt = getattr(torch, dtype)
+    got, want, again = _wmsa_call(entry, rng, dt, (2, 16, 24), C, heads,
+                                  shifted)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel_err(got, want) <= TOL[dtype]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_wmsa_width_rule_is_the_library_rule(card):
+    """kernel_takes and the library's own check (its shared-memory query
+    answers -1 for a width it does not take) agree at every C up to 264
+    and every head count that divides it, in both dtypes; every taken
+    width fits a block's shared memory."""
+    from dcae_tpu_torch.ops.kernels import _build
+
+    smem = wm._entries()["smem"]
+    for C in range(8, 272, 8):
+        for heads in (h for h in range(1, C + 1) if C % h == 0):
+            for bf16, dt in ((0, torch.float32), (1, torch.bfloat16)):
+                need = smem(C, heads, bf16)
+                assert wm.kernel_takes(C, heads, dt) == (need >= 0), \
+                    (C, heads, dt)
+                assert need <= _build.SMEM_LIMIT, (C, heads, dt)
 
 
 @pytest.mark.cuda

@@ -161,3 +161,40 @@ def test_conv_glu_kernel_widths():
     assert not cg.supported(96, 192, bf16)
     assert not cg.supported(144, 288, bf16)
     assert not cg.supported(640, 1280, bf16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_routed_wmsa_widths_are_widths_the_kernel_takes(dtype):
+    """Every window-8 width DCAEConfig() sends wmsa_block / wmsa_attention
+    (the Swin stacks of g_a and g_s) and the card tests' 128 / 4 are widths
+    the kernel of this dtype takes; so are narrower and odd head counts of
+    the same rule; an untaken width raises ValueError naming it, whatever
+    the device."""
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.transforms import GAnalysis, GSynthesis
+    from dcae_tpu_torch.ops.blocks import WMSA
+
+    dt = getattr(torch, dtype)
+    cfg = DCAEConfig()
+    routed = {(m.heads * m.head_dim, m.heads)
+              for net in (GAnalysis(cfg), GSynthesis(cfg))
+              for m in net.modules()
+              if isinstance(m, WMSA) and m.window_size == wm.WINDOW}
+    assert routed == {(96, 12), (144, 9), (256, 8)}
+    for C, heads in routed | {(128, 4), (16, 2), (80, 5), (240, 10)}:
+        assert wm.kernel_takes(C, heads, dt), (C, heads)
+    assert not wm.kernel_takes(24, 3, dt)                # C % 16
+    assert not wm.kernel_takes(64, 16, dt)               # head_dim 4
+    assert not wm.kernel_takes(64, 1, dt)                # head_dim 64
+    assert not wm.kernel_takes(320, 10, dt)              # C > 256
+    assert not wm.kernel_takes(256, 8, torch.float16)
+    rng = np.random.default_rng(42)
+    C, heads = 8, 2                                      # head_dim 4
+    x = torch.from_numpy(rng.normal(size=(1, 8, 8, C)).astype(np.float32))
+    args = tuple(a.to(dt) for a in _wmsa_torch_args(_wmsa_params(rng, C,
+                                                                  heads)))
+    with pytest.raises(ValueError, match=f"C={C} with {heads} heads"):
+        wm.launch("wmsa_block", x.to(dt), args, heads=heads, shifted=False)
+    with pytest.raises(ValueError, match=f"C={C} with {heads} heads"):
+        wm.launch("wmsa_attention", x.to(dt), args[3:], heads=heads,
+                  shifted=True)
