@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, as the checks run it
     python3 chip_smoke.py --phase kernels
     python3 chip_smoke.py --phase train
+    python3 chip_smoke.py --phase split
 
 Phases, in order:
   build      nvcc builds every kernel of csrc/ from this checkout (one
@@ -69,6 +70,40 @@ Phases, in order:
              outputs calibrate; then one tiny run_training epoch on
              generated PNGs with a checkpoint reload (the tiny model with
              window-8 stacks 96 channels wide: TINY_W8).
+  split      split deployment (seeded random weights; builds nothing new):
+             halves     make_split_pair on the full-size bf16 codec and 2
+                        768x512 images: streams equal to the joint staged
+                        encoder's, exact decode, x_hat bitwise the joint
+                        decode's; each half's parameter bytes are the joint
+                        model's less the other half's transforms (the shared
+                        modules are most of the model), its state dict has
+                        no key of the other half, and it refuses the other
+                        half's methods; 15 / 17 launches each way; ms per
+                        image beside the joint codec's; the halves' device
+                        parts under set_sync_debug_mode("error");
+             latent     DLT1 round trips in 4 dtypes, PSNR against the f32
+                        hand-off;
+             many       compress_many / decompress_many over 3 batches of 2
+                        against per-batch calls; encdec_pipeline's ms per
+                        image beside sequential calls (recorded only);
+             cross-device  CrossDeviceCodec (tools/eval.py) on a 256x256
+                        image, f32, card -> CPU and CPU -> card: with shipped
+                        indexes the decode must be exact; without, whether it
+                        is exact is printed;
+             autoencoder  the full-width SimpleAutoencoder (f32), joint and
+                        g_a -> float16 latent -> g_s: launches, stage ms;
+             training   make_split_train_step, full-width f32, batch 8 of
+                        256x256, both halves on cuda:0: step-1 gradients,
+                        3 warm + 5 timed steps, peak memory beside the train
+                        phase's joint step, launches 30 / 29, the loss
+                        falling; a TINY_W8 step with the encoder half on the
+                        CPU and the decoder half on the card within the tiny
+                        step's bars of the all-CPU split step;
+             CLIs       compress_and_decompress (classic, interleaved,
+                        --latent float16) and eval_autoencoder --split as
+                        subprocesses on 2 PNGs: exit 0, each .bin the bytes
+                        of this process's codec, each PNG its decode.
+             It prints one JSON line of its own ({"split": ...}).
   profile    (only with --phase profile) device time of one slice run by
              kernel, from torch.profiler: staged, shipped-index and
              interleaved pairs; then of one full-width training step.
@@ -1761,12 +1796,6 @@ def tiny_step_card_vs_cpu() -> dict:
     lr = 1e-4
     tx = make_optimizer(lr, 1e-3, 1.0)
 
-    def fixed_noise(x, generator):
-        seed = int(np.prod(x.shape)) * 7 + x.dim()
-        noise = torch.rand(x.shape, generator=torch.Generator()
-                           .manual_seed(seed)) - 0.5
-        return x + noise.to(x.device)
-
     def step(dev):
         model = seeded_model(cfg, dev)
         state = create_train_state(model, tx, torch.Generator(device=dev))
@@ -1826,26 +1855,8 @@ def tiny_step_card_vs_cpu() -> dict:
     finally:
         ops.noise_quantize = real
 
-    def compare(m, g, p) -> dict:
-        errs, key_bias_ok = {}, True
-        for n in g_cpu:
-            if n.endswith(".k.bias"):       # true gradient 0: noise on both
-                scale = float(g_cpu[n[:-4] + "weight"].abs().max())
-                key_bias_ok &= float(g[n].abs().max()) <= 1e-5 * scale
-                continue
-            errs[n] = rel_err(g[n], g_cpu[n])
-        worst = max(errs, key=errs.get)
-        diff = torch.cat([(p[n] - p_cpu[n]).abs().flatten() for n in p_cpu])
-        return {"loss_rel_err": max(abs(m[k] - m_cpu[k]) / abs(m_cpu[k])
-                                    for k in m_cpu),
-                "grad_rel_err": errs[worst], "grad_worst": worst,
-                "grad_p90": float(np.quantile(list(errs.values()), 0.9)),
-                "key_bias_ok": bool(key_bias_ok),
-                "param_max_diff_in_lr": float(diff.max()) / lr,
-                "param_p99_diff_in_lr": float(torch.quantile(diff, 0.99))
-                / lr}
-
-    res = {k: compare(*r) for k, r in runs.items()}
+    res = {k: compare_steps((m_cpu, g_cpu, p_cpu), r, lr)
+           for k, r in runs.items()}
     res["kernel"]["forward_rel_err"] = eps_kernel
     res["kernel"]["window_launches"] = len(fwd_err)
     print("train tiny card vs CPU: " + json.dumps(res), flush=True)
@@ -1863,6 +1874,43 @@ def tiny_step_card_vs_cpu() -> dict:
         fail("train: the tiny step's gradient bars pass the control, a "
              "forward 10x over its bar")
     return res
+
+
+def fixed_noise(x, generator):
+    """noise_quantize's stand-in for card-vs-CPU steps: one seeded
+    U(-0.5, 0.5) array a shape, made on the host."""
+    import torch
+
+    seed = int(np.prod(x.shape)) * 7 + x.dim()
+    noise = torch.rand(x.shape, generator=torch.Generator()
+                       .manual_seed(seed)) - 0.5
+    return x + noise.to(x.device)
+
+
+def compare_steps(ref: tuple, got: tuple, lr: float) -> dict:
+    """A step's (metrics, gradients, parameters after) against a reference
+    step's, in the terms tiny_step_passes reads."""
+    import torch
+
+    m_ref, g_ref, p_ref = ref
+    m, g, p = got
+    errs, key_bias_ok = {}, True
+    for n in g_ref:
+        if n.endswith(".k.bias"):       # true gradient 0: noise on both
+            scale = float(g_ref[n[:-4] + "weight"].abs().max())
+            key_bias_ok &= float(g[n].abs().max()) <= 1e-5 * scale
+            continue
+        errs[n] = rel_err(g[n], g_ref[n])
+    worst = max(errs, key=errs.get)
+    diff = torch.cat([(p[n] - p_ref[n]).abs().flatten() for n in p_ref])
+    return {"loss_rel_err": max(abs(m[k] - m_ref[k]) / abs(m_ref[k])
+                                for k in m_ref),
+            "grad_rel_err": errs[worst], "grad_worst": worst,
+            "grad_p90": float(np.quantile(list(errs.values()), 0.9)),
+            "key_bias_ok": bool(key_bias_ok),
+            "param_max_diff_in_lr": float(diff.max()) / lr,
+            "param_p99_diff_in_lr": float(torch.quantile(diff, 0.99))
+            / lr}
 
 
 def tiny_step_passes(r: dict) -> bool:
@@ -1940,11 +1988,546 @@ def train_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------- split --
+
+def param_bytes(module) -> int:
+    return sum(p.numel() * p.element_size() for p in module.parameters())
+
+
+def split_codec_part(params: dict, imgs: np.ndarray) -> dict:
+    """make_split_pair on the full-size bf16 codec against the joint codec
+    of the same weights: streams, exact decode, x_hat, what each half holds
+    on the card, launches and ms per image; the halves' device parts under
+    the sync-debug guard."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+    from dcae_tpu_torch.models.split import (SplitCompressor,
+                                             SplitDecompressor)
+
+    cfg, bf16 = DCAEConfig(), torch.bfloat16
+    B = imgs.shape[0]
+    want = {"wmsa_block": 15, "conv_glu": 17, "wmsa_attention": 0,
+            **NO_LANES}
+    joint = DCAECodec(cfg, params=params, dtype=bf16)
+    joint.update()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    enc = SplitCompressor(cfg, params, dtype=bf16)
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    dec = SplitDecompressor(cfg, params, enc.tables, dtype=bf16)
+    torch.cuda.synchronize()
+    m2 = torch.cuda.memory_allocated()
+    e, d = enc.codec, dec.codec
+    held = {"joint": param_bytes(joint.model), "encoder": param_bytes(e.model),
+            "decoder": param_bytes(d.model),
+            **{k: param_bytes(getattr(joint.model, k))
+               for k in ("g_a", "h_a", "g_s")}}
+    keys_ok = (not any(k.startswith("g_s.") for k in e.model.state_dict())
+               and not any(k.startswith(("g_a.", "h_a."))
+                           for k in d.model.state_dict()))
+    refused = False
+    try:
+        e.decompress([[b""], [b""]], (1, 1))
+    except RuntimeError:
+        refused = True
+
+    st = joint.compress(imgs, mode="staged")
+    jd = joint.decompress(**_strings(st))
+    enc.compress(imgs, mode="staged")                       # warm-up
+    dec.decompress(**_strings(st))
+    enc_rec, dec_rec = [], []
+    out, enc_counts, enc_ms = counted(
+        lambda: enc.compress(imgs, mode="staged", record=enc_rec))
+    got, dec_counts, dec_ms = counted(
+        lambda: dec.decompress(**_strings(out), record=dec_rec))
+    res = {
+        "streams_equal_joint": out["strings"] == st["strings"],
+        "exact_decode": exact(enc_rec, dec_rec, cfg.num_slices),
+        "x_hat_bitwise_joint": bool(torch.equal(got["x_hat"],
+                                                jd["x_hat"])),
+        "param_bytes": held,
+        "allocated_bytes": {"encoder": m1 - m0, "decoder": m2 - m1},
+        "encoder_share": held["encoder"] / held["joint"],
+        "decoder_share": held["decoder"] / held["joint"],
+        "state_dict_keys_ok": keys_ok, "missing_half_raises": refused,
+        "launches_encoder": enc_counts, "launches_decoder": dec_counts}
+    res["encode_ms_per_image"], _ = median_ms(
+        lambda: enc.compress(imgs, mode="staged"), enc_ms, B)
+    res["decode_ms_per_image"], _ = median_ms(
+        lambda: dec.decompress(**_strings(out)), dec_ms, B)
+    t0 = time.perf_counter()
+    joint.compress(imgs, mode="staged")
+    torch.cuda.synchronize()
+    res["joint_encode_ms_per_image"], _ = median_ms(
+        lambda: joint.compress(imgs, mode="staged"),
+        (time.perf_counter() - t0) * 1e3, B)
+    t0 = time.perf_counter()
+    joint.decompress(**_strings(st))
+    torch.cuda.synchronize()
+    res["joint_decode_ms_per_image"], _ = median_ms(
+        lambda: joint.decompress(**_strings(st)),
+        (time.perf_counter() - t0) * 1e3, B)
+
+    # the halves' device parts never make the host wait
+    x_dev = e._input(imgs)
+    arrays = no_host_wait(lambda: e._encode_arrays(x_dev, "split"))
+    z_hat = (arrays["z_symbols"].float()
+             + d.model.eb_medians().reshape(1, 1, 1, -1))
+    sym = torch.cat(list(arrays["y_symbols"]), dim=-1)
+    x_all = no_host_wait(lambda: d.model.decode_all(z_hat, sym))
+    res["device_parts_sync_free"] = True
+    res["decode_all_bitwise_joint"] = bool(torch.equal(x_all, jd["x_hat"]))
+    print("split halves: " + json.dumps(res), flush=True)
+    if not (res["streams_equal_joint"] and res["exact_decode"]
+            and res["x_hat_bitwise_joint"] and keys_ok and refused):
+        fail("split: the halves disagree with the joint codec")
+    # the shared modules (dictionary attention, slice nets, hyper
+    # synthesis) are most of the model: a half is the joint model less
+    # the other half's transforms, and what building it allocated on the
+    # card exceeds its parameters by less than half of those transforms
+    if not (held["encoder"] == held["joint"] - held["g_s"]
+            and held["decoder"] == held["joint"] - held["g_a"]
+            - held["h_a"]
+            and m1 - m0 - held["encoder"] < held["g_s"] / 2
+            and m2 - m1 - held["decoder"] < (held["g_a"] + held["h_a"]) / 2):
+        fail("split: a half holds more than its own modules")
+    check_counts("split encoder half", enc_counts, want)
+    check_counts("split decoder half", dec_counts, want)
+    for c in (joint, e, d):
+        c.close()
+    return res
+
+
+def latent_part(params: dict, imgs: np.ndarray) -> dict:
+    """DLT1 round trip of the bf16 codec's latent in each dtype on the card:
+    PSNR of each x_hat against the f32 hand-off's."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+    from dcae_tpu_torch.runtime import container
+
+    codec = DCAECodec(DCAEConfig(), params=params, dtype=torch.bfloat16)
+    B, H, W, _ = imgs.shape
+    y = codec.compress_latent(imgs)
+    ref = codec.decompress_latent(y)["x_hat"].float()
+    res = {}
+    for dtype in ("float32", "float16", "bfloat16", "int8"):
+        blob = container.pack_latent(y, (H, W), dtype)
+        back, _, size = container.unpack_latent(blob, codec.cfg.pad_multiple)
+        x_hat = codec.decompress_latent(back)["x_hat"].float()
+        mse = float(((x_hat - ref) ** 2).mean())
+        res[dtype] = {"bytes": len(blob), "size_ok": size == (H, W),
+                      "psnr_vs_f32_db": 10 * np.log10(1 / max(mse, 1e-20)),
+                      "finite": bool(torch.isfinite(x_hat).all())}
+    print("split latent: " + json.dumps(res), flush=True)
+    if not res["float32"]["psnr_vs_f32_db"] >= 200 or not all(
+            r["size_ok"] and r["finite"] for r in res.values()):
+        fail("split: a DLT1 round trip")
+    codec.close()
+    return res
+
+
+def many_part(params: dict) -> dict:
+    """compress_many / decompress_many over 3 batches of 2 against
+    per-batch calls; encdec_pipeline's ms per image beside sequential
+    compress + decompress (recorded, not held to anything)."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+
+    codec = DCAECodec(DCAEConfig(), params=params, dtype=torch.bfloat16)
+    codec.update()
+    codec.encode_mode = "split"
+    batches = list(synthetic_kodak(6, seed=21).reshape(3, 2, 512, 768, 3))
+    n = 6
+    seq = [codec.compress(b, mode="split") for b in batches]
+    seq_dec = [codec.decompress(**_strings(e)) for e in seq]
+    many = codec.compress_many(batches, mode="split", pipeline=True)
+    dec_many = codec.decompress_many([(e["strings"], e["shape"])
+                                      for e in many])
+    pipe = codec.encdec_pipeline(batches)
+    ok = (all(a["strings"] == b["strings"] for a, b in zip(many, seq))
+          and all(torch.equal(a["x_hat"], b["x_hat"])
+                  for a, b in zip(dec_many, seq_dec)))
+
+    def sequential():
+        for b in batches:
+            codec.decompress(**_strings(codec.compress(b)))
+
+    t = {}
+    for name, fn in (("sequential", sequential),
+                     ("compress_per_batch", lambda: [
+                         codec.compress(b) for b in batches]),
+                     ("encdec_pipeline", lambda: codec.encdec_pipeline(
+                         batches)),
+                     ("compress_many_pipelined", lambda: codec.compress_many(
+                         batches, pipeline=True))):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3 / n)
+        t[name + "_ms_per_image"] = float(np.median(runs))
+        t[name + "_ms_runs"] = runs
+    pipe_ok = all(p["strings"] == s["strings"]
+                  and torch.equal(p["x_hat"], d["x_hat"])
+                  for p, s, d in zip(pipe, seq, seq_dec))
+    res = {"many_equal_per_batch": ok,
+           "pipeline_equal_sequential": pipe_ok, **t}
+    print("split many / pipeline: " + json.dumps(res), flush=True)
+    if not (ok and pipe_ok):
+        fail("split: compress_many / decompress_many / encdec_pipeline "
+             "differ from per-batch calls")
+    codec.close()
+    return res
+
+
+def cross_device_part(params: dict) -> dict:
+    """CrossDeviceCodec on one 256x256 image, both ways (encoder half on
+    the card, decoder half on the CPU, and the reverse), f32: with shipped
+    indexes the decode must be exact; without, whether it is exact (and
+    the first slice that differs) is recorded."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+    from dcae_tpu_torch.models.split import (compress_params,
+                                             decompress_params)
+    from dcae_tpu_torch.tools.eval import CrossDeviceCodec
+
+    cfg = DCAEConfig()
+    img = synthetic_kodak(1, 256, 256, seed=5)
+    halves = {dev: (DCAECodec(cfg, params=compress_params(params),
+                              device=dev),
+                    DCAECodec(cfg, params=decompress_params(params),
+                              device=dev)) for dev in ("cuda", "cpu")}
+    res = {}
+    for enc_dev, dec_dev in (("cuda", "cpu"), ("cpu", "cuda")):
+        cross = CrossDeviceCodec(halves[enc_dev][0], halves[dec_dev][1],
+                                 ship_indexes=True)
+        cross.update()
+        enc_rec = []
+        t0 = time.perf_counter()
+        out = cross.enc.compress_with_indexes(img, record=enc_rec)
+        enc_s = time.perf_counter() - t0
+        shipped, plain = [], []
+        cross.dec.decompress(**_strings(out), indexes=out["indexes"],
+                             record=shipped)
+        cross.dec.decompress(**_strings(out), record=plain)
+        differs = [i for i, ((ei, es), (di, ds)) in
+                   enumerate(zip(enc_rec, plain))
+                   if not (np.array_equal(ei.astype(np.int32),
+                                          di.astype(np.int32))
+                           and np.array_equal(es, ds))]
+        key = f"encoder_{enc_dev}_decoder_{dec_dev}"
+        res[key] = {
+            "shipped_exact": exact(
+                [(i.astype(np.int32), s) for i, s in enc_rec],
+                [(i.astype(np.int32), s) for i, s in shipped],
+                cfg.num_slices),
+            "unshipped_exact": not differs and len(plain) == len(enc_rec),
+            "unshipped_first_slice_differing": differs[0] if differs
+            else None,
+            "unshipped_index_mismatches_first": int(
+                (enc_rec[differs[0]][0].astype(np.int32)
+                 != plain[differs[0]][0].astype(np.int32)).sum())
+            if differs else 0,
+            "encode_s": enc_s}
+    print("split cross-device: " + json.dumps(res), flush=True)
+    if not all(r["shipped_exact"] for r in res.values()):
+        fail("split: a cross-device decode with shipped indexes is not "
+             "exact")
+    for e, d in halves.values():
+        e.close()
+        d.close()
+    return res
+
+
+def autoencoder_part(imgs: np.ndarray) -> dict:
+    """The full-width SimpleAutoencoder (f32) on the card: joint, and split
+    as g_a -> float16 latent -> g_s, launches and ms of each stage."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.autoencoder import SimpleAutoencoder
+    from dcae_tpu_torch.tools.eval_autoencoder import ship
+
+    model = SimpleAutoencoder(DCAEConfig())
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    x = torch.from_numpy(imgs).cuda().float() / 255.0
+    with torch.no_grad():
+        model(x)                                            # warm-up
+        out, joint_counts, joint_ms = counted(lambda: model(x))
+        _, enc_counts, enc_ms = counted(lambda: model.compress(x))
+        y = model.compress(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y16 = ship(y, "float16", torch.device("cuda"))
+        torch.cuda.synchronize()
+        xfer_ms = (time.perf_counter() - t0) * 1e3
+        x_hat, dec_counts, dec_ms = counted(lambda: model.decompress(y16))
+        ref = torch.clamp(out["x_hat"], 0, 1)
+        mse = float(((x_hat - ref) ** 2).mean())
+    res = {"launches_joint": joint_counts, "launches_encode": enc_counts,
+           "launches_decode": dec_counts, "joint_ms": joint_ms,
+           "encode_ms": enc_ms, "transfer_ms": xfer_ms, "decode_ms": dec_ms,
+           "fp16_vs_f32_psnr_db": 10 * np.log10(1 / max(mse, 1e-20)),
+           "finite": bool(torch.isfinite(x_hat).all())}
+    print("split autoencoder: " + json.dumps(res), flush=True)
+    half = {"wmsa_block": 15, "conv_glu": 12, "wmsa_attention": 0,
+            **NO_LANES}
+    check_counts("autoencoder joint", joint_counts,
+                 {**half, "wmsa_block": 30, "conv_glu": 24})
+    check_counts("autoencoder encode", enc_counts, half)
+    check_counts("autoencoder decode", dec_counts, half)
+    if not res["finite"]:
+        fail("split: the autoencoder's output is not finite")
+    return res
+
+
+def split_training_part(joint_train: dict | None) -> dict:
+    """make_split_train_step on the full-width f32 model, both halves on
+    cuda:0: step-1 gradients, 3 warm + 5 timed steps, peak memory, the loss
+    before and after, launches; then the tiny hybrid step (encoder half on
+    the CPU, decoder half on the card) against the CPU-only split step."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.train.split_step import (create_split_train_state,
+                                                 make_split_train_step)
+    from dcae_tpu_torch.train.state import make_optimizer
+
+    dev = torch.device("cuda", 0)
+    model = seeded_model(DCAEConfig(), dev)
+    batch = torch.from_numpy(train_batch()).to(dev)
+    tx = make_optimizer(1e-4, 1e-3, 1.0)
+    state = create_split_train_state(model, tx, dev, dev, seed=1)
+    step = make_split_train_step(model, tx, LMBDA, "mse", dev, dev)
+    loss_before = eval_loss(model, batch)
+    (_, metrics), counts, _ = counted(lambda: step(state, batch))
+    check_finite(metrics, state)
+    bad = zero_gradient_names(model)
+    timed_steps(step, state, batch, 2)                   # 3 warm in all
+    torch.cuda.reset_peak_memory_stats()
+    runs = timed_steps(step, state, batch, 5)
+    peak = torch.cuda.max_memory_allocated()
+    loss_after = eval_loss(model, batch)
+    med = float(np.median(runs))
+    res = {"step_ms_median": med, "step_ms_runs": runs,
+           "peak_memory_bytes": peak, "loss_before": loss_before,
+           "loss_after": loss_after, "launches_step": counts,
+           "steps": state.step, "zero_or_missing_gradients": bad}
+    if joint_train is not None:
+        res["joint_step_ms_median"] = joint_train["step_ms_median"]
+        res["joint_peak_memory_bytes"] = joint_train["peak_memory_bytes"]
+    print("split training: " + json.dumps(res), flush=True)
+    if bad:
+        fail(f"split training: parameters without a finite nonzero "
+             f"gradient at step 1: {bad}")
+    check_counts("split training step", counts,
+                 {"wmsa_block": 30, "conv_glu": 29, "wmsa_attention": 0,
+                  **NO_LANES})
+    if not (np.isfinite(loss_after) and loss_after < loss_before):
+        fail(f"split training: the loss did not fall: {loss_before} -> "
+             f"{loss_after}")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    res["tiny_hybrid_vs_cpu"] = tiny_hybrid_step()
+    return res
+
+
+def tiny_hybrid_step() -> dict:
+    """One TINY_W8 split step with the encoder half on the CPU and the
+    decoder half on the card against the same split step all on the CPU
+    (fixed noise, as in tiny_step_card_vs_cpu), held to the same bars."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.entropy import ops
+    from dcae_tpu_torch.train.split_step import (create_split_train_state,
+                                                 make_split_train_step)
+    from dcae_tpu_torch.train.state import make_optimizer
+
+    cfg = DCAEConfig.tiny(**TINY_W8)
+    batch = torch.from_numpy(train_batch(2, 128, seed=3))
+    lr = 1e-4
+    tx = make_optimizer(lr, 1e-3, 1.0)
+
+    def step(enc_dev, dec_dev):
+        model = seeded_model(cfg, "cpu")
+        state = create_split_train_state(model, tx, enc_dev, dec_dev)
+        _, metrics = make_split_train_step(model, tx, LMBDA, "mse", enc_dev,
+                                           dec_dev)(state, batch)
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: p.grad.cpu() for n, p in model.named_parameters()},
+                {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+    real, ops.noise_quantize = ops.noise_quantize, fixed_noise
+    try:
+        ref = step("cpu", "cpu")
+        got, counts, _ = counted(lambda: step("cpu", "cuda"))
+    finally:
+        ops.noise_quantize = real
+    res = compare_steps(ref, got, lr)
+    res["launches"] = counts
+    print("split tiny hybrid vs CPU: " + json.dumps(res), flush=True)
+    if counts["wmsa_block"] == 0:
+        fail("split: the hybrid step's decoder half launched no kernel")
+    if not tiny_step_passes(res):
+        fail("split: the hybrid tiny step differs from the CPU split step")
+    return res
+
+
+CLI = [sys.executable, "-m"]
+
+
+def cli_part(params: dict) -> dict:
+    """The port's CLIs through subprocesses on 2 PNGs, full width on the
+    card (seeded random weights, f32): compress_and_decompress in the
+    classic, interleaved and latent formats (the three compresses run at
+    once, then one decompress of all the files) and eval_autoencoder
+    --split. Each .bin must be the bytes this process's codec of the same
+    weights writes, and each decoded PNG the PNG of its decode."""
+    import torch
+    from PIL import Image
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+    from dcae_tpu_torch.data.datasets import load_image
+    from dcae_tpu_torch.entropy.rans import EscapeError
+    from dcae_tpu_torch.ops.layers import pad_spatial
+    from dcae_tpu_torch.runtime import container
+    from dcae_tpu_torch.tools.compress_and_decompress import decode_blob
+
+    imgs = synthetic_kodak(2, 256, 384, seed=9)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="dcae_smoke_") as tmp:
+        src = os.path.join(tmp, "png")
+        os.makedirs(src)
+        for i, img in enumerate(imgs):
+            Image.fromarray(img).save(os.path.join(src, f"im{i}.png"))
+        mod = "dcae_tpu_torch.tools."
+        fmts = {"classic": [], "interleaved": ["--interleaved"],
+                "latent": ["--latent", "float16"]}
+        t0 = time.perf_counter()
+        procs = {f: subprocess.Popen(
+            CLI + [mod + "compress_and_decompress", "--mode", "compress",
+                   "--data", src, "--save_path", os.path.join(tmp, f)]
+            + extra, env=env, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for f, extra in fmts.items()}
+        procs["eval_autoencoder"] = subprocess.Popen(
+            CLI + [mod + "eval_autoencoder", "--data", src, "--split",
+                   "--latent_dtype", "float16"], env=env, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs = {k: p.communicate(timeout=300)[0] for k, p in procs.items()}
+        codes = {k: p.returncode for k, p in procs.items()}
+        both = os.path.join(tmp, "all")
+        os.makedirs(both)
+        for f in fmts:
+            for name in sorted(os.listdir(os.path.join(tmp, f, "bin"))):
+                os.replace(os.path.join(tmp, f, "bin", name),
+                           os.path.join(both, f"{f}_{name}"))
+        dec = subprocess.run(
+            CLI + [mod + "compress_and_decompress", "--mode", "decompress",
+                   "--data", both, "--save_path", os.path.join(tmp, "out")],
+            env=env, cwd=root, capture_output=True, text=True, timeout=300)
+        codes["decompress"] = dec.returncode
+        res["wall_s"] = time.perf_counter() - t0
+        res["exit_codes"] = codes
+        if any(codes.values()):
+            for k, log in {**logs, "decompress": dec.stdout + dec.stderr
+                           }.items():
+                print(f"--- {k}\n{log[-3000:]}", flush=True)
+            fail(f"split: a CLI failed: {codes}")
+        res["eval_autoencoder_size_analysis"] = \
+            "SIZE ANALYSIS" in logs["eval_autoencoder"]
+
+        codec = DCAECodec(DCAEConfig(), seed=0)
+        codec.update()
+        same_bytes, same_png = {}, {}
+        for f in fmts:
+            for i, img in enumerate(imgs):
+                # read as the CLI reads it: the host's division by 255 and
+                # the card's (a multiply by the reciprocal) differ in ulps
+                x, _ = pad_spatial(codec._input(load_image(os.path.join(
+                    src, f"im{i}.png"))[None]), codec.cfg.pad_multiple)
+                size = img.shape[:2]
+                with open(os.path.join(both, f"{f}_im{i}.bin"), "rb") as fh:
+                    raw = fh.read()
+                if f == "interleaved":
+                    try:
+                        mine = container.pack_bin_interleaved(
+                            codec.compress_device(x), size)
+                    except EscapeError:      # the CLI's fallback too
+                        f_enc = codec.compress(x)
+                        mine = container.pack_bin(f_enc["strings"], size)
+                elif f == "classic":
+                    enc = codec.compress(x)
+                    mine = container.pack_bin(enc["strings"], size)
+                else:
+                    mine = container.pack_latent(codec.compress_latent(x),
+                                                 size, "float16")
+                png = np.asarray(Image.open(os.path.join(
+                    tmp, "out", "png", f"{f}_im{i}.png")))
+                x_hat = decode_blob(codec, raw)[0].float().cpu().numpy()
+                own = np.clip(x_hat * 255.0 + 0.5, 0, 255).astype(np.uint8)
+                same_bytes[f"{f}_im{i}"] = raw == mine
+                same_png[f"{f}_im{i}"] = bool(np.array_equal(png, own))
+        codec.close()
+    res["bin_bytes_equal_in_process"] = same_bytes
+    res["png_equal_in_process_decode"] = same_png
+    print("split CLIs: " + json.dumps(res), flush=True)
+    if not (all(same_bytes.values()) and all(same_png.values())
+            and res["eval_autoencoder_size_analysis"]):
+        fail("split: a CLI's file differs from this process's codec")
+    return res
+
+
+def split_phase(joint_train: dict | None = None) -> dict:
+    """Split deployment on the card: halves, cross-device codec, DLT1,
+    compress_many / decompress_many / encdec_pipeline, the autoencoder,
+    split training and the CLIs."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.dcae import DCAE
+
+    t0 = time.perf_counter()
+    init = DCAE(DCAEConfig())
+    init.reset_parameters(torch.Generator().manual_seed(0))
+    params = init.state_dict()
+    del init
+    imgs = synthetic_kodak(BATCH)
+    out = {"halves": split_codec_part(params, imgs)}
+    out["latent"] = latent_part(params, imgs)
+    out["many"] = many_part(params)
+    torch.cuda.empty_cache()
+    out["cross_device"] = cross_device_part(params)
+    out["autoencoder"] = autoencoder_part(imgs)
+    torch.cuda.empty_cache()
+    # the codec parts made cuDNN deterministic; training runs without
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = False
+    try:
+        out["training"] = split_training_part(joint_train)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    torch.cuda.empty_cache()
+    out["clis"] = cli_part(params)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"split: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "reference",
-                                        "slice", "train", "profile",
-                                        "bands"),
+                                        "slice", "train", "split",
+                                        "profile", "bands"),
                     default="all",
                     help="one phase only; profile (not part of all) traces "
                     "the slice with torch.profiler; bands (not part of all) "
@@ -1985,6 +2568,9 @@ def main() -> int:
     train_res = None
     if args.phase in ("all", "train"):
         train_res = train_phase()
+    split_res = None
+    if args.phase in ("all", "split"):
+        split_res = split_phase(train_res)
     if args.phase == "profile":
         profile_phase()
     if args.phase == "bands":
@@ -2010,6 +2596,8 @@ def main() -> int:
         print(json.dumps({"kernels": kernel_summary(results, launches,
                                                     train_launches),
                           "slice": slice_res, "train": train_res}))
+    if split_res is not None:
+        print(json.dumps({"split": split_res}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

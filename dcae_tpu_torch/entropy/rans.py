@@ -168,6 +168,33 @@ def build_decode_lut(cdfs, cdf_lengths) -> np.ndarray:
     return lut
 
 
+class RansEncoder:
+    """Buffered encoder: collect (symbols, indexes) pairs, then flush them
+    as ONE stream (every channel-AR slice of an image shares a stream)."""
+
+    def __init__(self):
+        self._symbols: list = []
+        self._indexes: list = []
+        self._tables = None
+
+    def encode_with_indexes(self, symbols, indexes, cdfs, cdf_lengths,
+                            offsets) -> None:
+        self._symbols.append(_as_i32(symbols))
+        self._indexes.append(_as_i32(indexes))
+        self._tables = (cdfs, cdf_lengths, offsets)
+
+    def flush(self) -> bytes:
+        """The stream of everything collected since the last flush (b""
+        when nothing was); the buffer is emptied."""
+        if self._tables is None:
+            return b""
+        out = encode_with_indexes(np.concatenate(self._symbols),
+                                  np.concatenate(self._indexes),
+                                  *self._tables)
+        self._symbols, self._indexes, self._tables = [], [], None
+        return out
+
+
 class RansDecoder:
     """Streaming decoder: decode_stream may be called repeatedly and the
     coder state persists across calls (the sequential slice loop)."""

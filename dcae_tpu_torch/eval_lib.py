@@ -35,8 +35,11 @@ class ImageResult:
 
 
 def _drain(codec: DCAECodec) -> None:
-    if codec.device.type == "cuda":
-        torch.cuda.synchronize(codec.device)
+    """Wait for every card the codec runs on (a split codec has two
+    devices)."""
+    for dev in getattr(codec, "devices", (codec.device,)):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def _quality(x: torch.Tensor, x_hat: torch.Tensor):
@@ -69,7 +72,8 @@ def _eval_coded_round_trip(codec: DCAECodec, x: np.ndarray,
     if not bool(dec.get("ok", True)):
         raise ValueError("interleaved decode lanes checksum failed")
 
-    x_hat = crop_spatial(dec["x_hat"].to(torch.float32), padding)
+    x_hat = crop_spatial(dec["x_hat"].to(x_dev.device, torch.float32),
+                         padding)
     p, ms = _quality(x_dev, x_hat)
     return ImageResult("", p, ms, byte_count_fn(enc) * 8.0 / (h * w),
                        t1 - t0, t2 - t1)
@@ -113,8 +117,8 @@ def eval_image_forward(codec: DCAECodec, x: np.ndarray) -> ImageResult:
     out = codec.forward(padded)
     _drain(codec)
     t1 = time.perf_counter()
-    x_hat = crop_spatial(torch.clamp(out["x_hat"].to(torch.float32), 0, 1),
-                         padding)
+    x_hat = crop_spatial(torch.clamp(
+        out["x_hat"].to(x_dev.device, torch.float32), 0, 1), padding)
     p, ms = _quality(x_dev, x_hat)
     bpp = float(likelihood_bpp(out["likelihoods"], h * w))
     return ImageResult("", p, ms, bpp, t1 - t0, 0.0)

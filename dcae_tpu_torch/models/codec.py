@@ -18,6 +18,9 @@
               host-decodes every slice first and makes one decode_all call.
   latent      compress_latent / decompress_latent hand off the raw latent
               y instead of a stream.
+  many        compress_many / decompress_many code several batches, one
+              batch's host coding overlapping another's device work;
+              encdec_pipeline is the classic format's serving loop.
   interleaved the device-coding profile: the y streams are K-lane
               interleaved rANS, coded ON THE DEVICE in both directions
               (entropy/device_decode.py). compress_device = a dispatch
@@ -38,6 +41,10 @@ are deterministic by construction. Symbols are serialized channel-major
 (NCHW flatten) per slice, the reference's order, and a batch encodes to
 one stream per image.
 
+A codec built from half a state dict (models/split.py: no g_s, or no g_a
+and h_a) is one half of a split deployment: its model holds only that
+half's parameters, and a method that needs the other half raises.
+
 Entry points run on CUDA unless the caller passes device="cpu"; without a
 GPU and without device="cpu" they raise.
 """
@@ -57,19 +64,18 @@ from dcae_tpu_torch.config import DCAEConfig
 from dcae_tpu_torch.entropy import device_decode, rans
 from dcae_tpu_torch.entropy.gaussian import get_scale_table
 from dcae_tpu_torch.entropy.tables import CodecTables, build_codec_tables
-from dcae_tpu_torch.models.dcae import DCAE
+from dcae_tpu_torch.models.dcae import DCAE, HALF_TRANSFORMS
 from dcae_tpu_torch.ops.kernels.rans_lanes import to_u16, to_u32
 
 
 def resolve_device(device=None) -> torch.device:
     """The device to run on: CUDA by default; never a silent CPU
-    fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                               "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    fallback (a CUDA device asked for without a card raises)."""
+    d = torch.device("cuda" if device is None else device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                           "the CPU")
+    return d
 
 
 def set_deterministic() -> None:
@@ -115,10 +121,16 @@ class DCAECodec:
 
     def __init__(self, cfg: DCAEConfig, params=None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
-                 device=None, patch_cap: int = 512):
+                 device=None, patch_cap: int = 512,
+                 tables: Optional[CodecTables] = None):
         """params: a state dict in the port's (= the reference's) naming,
         values numpy arrays or tensors (utils.convert builds one from Flax
         params or a reference checkpoint); None draws a seeded random init.
+        A state dict without any g_s.* (or without any g_a.* / h_a.*) keys
+        builds that half of a split deployment: the missing transforms are
+        never built, and the rest loads strictly.
+        tables: coding tables baked elsewhere (the encoder's, for a decoder
+        half); update() then has nothing to do unless forced.
         dtype: compute dtype of g_a/h_a/g_s (default from
         cfg.compute_dtype); the entropy side always runs f32.
         patch_cap: most out-of-table symbols a slice of the interleaved
@@ -129,7 +141,10 @@ class DCAECodec:
             dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                      else torch.float32)
         self.cfg = cfg
-        model = DCAE(cfg)
+        omit = () if params is None else tuple(
+            n for n in HALF_TRANSFORMS
+            if not any(k.startswith(n + ".") for k in params))
+        model = DCAE(cfg, omit=omit)
         if params is None:
             model.reset_parameters(torch.Generator().manual_seed(seed))
         else:
@@ -137,7 +152,7 @@ class DCAECodec:
                 {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
                  for k, v in params.items()}, strict=True)
         self.model = model.set_transform_dtype(dtype).to(self.device).eval()
-        self.tables: Optional[CodecTables] = None
+        self.tables: Optional[CodecTables] = tables
         self._scale_table = torch.as_tensor(
             get_scale_table(cfg.scales_min, cfg.scales_max,
                             cfg.scales_levels), device=self.device)
@@ -168,6 +183,24 @@ class DCAECodec:
             return t.to(torch.float32) / 255.0
         return t.to(torch.float32)
 
+    @property
+    def role(self) -> str:
+        """"joint", or the half of a split deployment this codec is:
+        "encoder" (no g_s) or "decoder" (no g_a / h_a)."""
+        omitted = self.model.omitted
+        return ("joint" if not omitted else
+                "encoder" if "g_s" in omitted else "decoder")
+
+    def _need(self, what: str, *names: str) -> None:
+        """Raise before any work when `what` needs a transform this codec
+        does not hold."""
+        missing = [n for n in names if n in self.model.omitted]
+        if missing:
+            raise RuntimeError(
+                f"{what} needs {', '.join(missing)}, which this codec does "
+                f"not hold: it is the {self.role} half of a split "
+                "deployment")
+
     def _require_tables(self) -> CodecTables:
         if self.tables is None:
             raise RuntimeError("call update() before real coding")
@@ -178,6 +211,7 @@ class DCAECodec:
     @torch.no_grad()
     def forward(self, x) -> dict:
         """Eval-mode forward pass (likelihoods, no bitstream)."""
+        self._need("forward", *HALF_TRANSFORMS)
         return self.model(self._input(x))
 
     @torch.no_grad()
@@ -233,6 +267,7 @@ class DCAECodec:
         mode writes the same stream format. record (optional list): gets
         the (indexes, symbols) numpy pair of every slice, (B, yh, yw, sd)
         each."""
+        self._need("compress", "g_a", "h_a")
         if mode is None:
             mode = (self.encode_mode if fused is None
                     else "fused" if fused else "staged")
@@ -255,7 +290,10 @@ class DCAECodec:
 
     def _fetch_encode_arrays(self, out: dict):
         """(z_symbols, y_symbols, y_indexes int32) of an encode's arrays as
-        numpy: the one hand-off from the device to the host coders."""
+        numpy: the one hand-off from the device to the host coders (waits
+        only for this encode when _copy_to_host started the copies)."""
+        if "_ready" in out:
+            out["_ready"].synchronize()
         return (out["z_symbols"].cpu().numpy(),
                 out["y_symbols"].cpu().numpy(),
                 out["y_indexes"].cpu().numpy().astype(np.int32))
@@ -280,6 +318,31 @@ class DCAECodec:
 
         y_strings = list(self._pool.map(encode_one, range(B)))
         return {"strings": [y_strings, z_strings], "shape": (zh, zw)}
+
+    @torch.no_grad()
+    def compress_many(self, batches: Sequence, fused: Optional[bool] = None,
+                      mode: Optional[str] = None, pipeline: bool = False
+                      ) -> List[dict]:
+        """compress() of each batch, in order. pipeline=True (split or
+        fused mode): batch n + 1's device work is queued before batch n's
+        arrays are host-coded, and each batch's fetch waits for its own
+        copies only, so the host coding of one batch overlaps the device
+        work of the next. The streams equal compress()'s."""
+        if mode is None:
+            mode = (self.encode_mode if fused is None
+                    else "fused" if fused else "staged")
+        if mode == "staged" or not pipeline:
+            return [self.compress(x, mode=mode) for x in batches]
+        self._need("compress_many", "g_a", "h_a")
+        results: List[dict] = []
+        pending = None
+        for x in list(batches) + [None]:
+            out = None if x is None else self._copy_to_host(
+                self._encode_arrays(x, mode))
+            if pending is not None:
+                results.append(self._finish_fused(pending))
+            pending = out
+        return results
 
     def _compress_staged(self, x, record: Optional[list]) -> dict:
         """Encode by replaying the decoder's functions, rounding each
@@ -333,6 +396,102 @@ class DCAECodec:
             z_hat[b] = _unflatten_chw(sym.astype(np.float32), zh, zw, C)
         return z_hat + medians.reshape(1, 1, 1, C)
 
+    def _copy_to_host(self, arrays: dict) -> dict:
+        """Start device-to-host copies of `arrays` into pinned memory
+        behind an event and return them at once: a later wait
+        (_fetch_encode_arrays, _DecodeJob) waits for these copies only,
+        not for device work queued after them. On the CPU: as given."""
+        if self.device.type != "cuda":
+            return arrays
+        out = {}
+        for k, t in arrays.items():
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            out[k] = host.copy_(t, non_blocking=True)
+        out["_ready"] = torch.cuda.Event()
+        out["_ready"].record()
+        return out
+
+    class _DecodeJob:
+        """One batch's per-slice decode as a state machine, so that several
+        batches can interleave (decompress_many): while one job's host
+        rANS decodes a slice, another job's device step runs. Each slice's
+        indexes are copied to the host as soon as their step is queued."""
+
+        def __init__(self, codec: "DCAECodec", strings, shape,
+                     record: Optional[list] = None):
+            self.c = codec
+            self.g = codec._require_tables().gaussian
+            self.lut = self.g.lut   # built once, before the pool reads it
+            self.record = record
+            y_strings, z_strings = strings
+            self.B = len(z_strings)
+            zh, zw = int(shape[0]), int(shape[1])
+            r = codec.cfg.hyper_ratio
+            self.y_h, self.y_w = zh * r, zw * r
+            z_hat = torch.as_tensor(codec._decode_z_hat(z_strings, zh, zw),
+                                    device=codec.device)
+            self.decoders = []
+            for s in y_strings:
+                d = rans.RansDecoder()
+                d.set_stream(s)
+                self.decoders.append(d)
+            try:
+                (self.ls, self.lm, self.support, self.mu,
+                 indexes) = codec.model.decode_start(z_hat,
+                                                     codec._scale_table)
+            except BaseException:
+                self.close()
+                raise
+            self.idx = codec._copy_to_host({"i": indexes})
+            self.y_hat = torch.zeros((self.B, self.y_h, self.y_w, 0),
+                                     device=codec.device)
+            self.slice = 0
+            self.x_hat = None
+
+        def _host_decode(self) -> np.ndarray:
+            if "_ready" in self.idx:
+                self.idx["_ready"].synchronize()
+            idx_np = self.idx["i"].cpu().numpy()
+            g, sd = self.g, self.c.cfg.slice_dim
+
+            def decode_one(b: int) -> np.ndarray:
+                flat = self.decoders[b].decode_stream(
+                    _nchw_flat(idx_np[b]), g.quantized_cdf, g.cdf_length,
+                    g.offset, self.lut)
+                return _unflatten_chw(flat, self.y_h, self.y_w, sd)
+
+            sym_np = np.stack(list(self.c._pool.map(decode_one,
+                                                    range(self.B))))
+            if self.record is not None:
+                self.record.append((idx_np, sym_np))
+            return sym_np
+
+        def advance(self) -> bool:
+            """Host-decode the current slice (waits for this job's indexes
+            only), then queue the next device step. False when done."""
+            if self.x_hat is not None:
+                return False
+            c = self.c
+            symbols = torch.as_tensor(self._host_decode(), device=c.device)
+            i = self.slice + 1
+            if i < c.cfg.num_slices:
+                self.y_hat, self.support, self.mu, indexes = \
+                    c.model.decode_step(i, self.ls, self.lm, self.y_hat,
+                                        self.support, self.mu, symbols,
+                                        c._scale_table)
+                self.idx = c._copy_to_host({"i": indexes})
+                self.slice = i
+                return True
+            self.x_hat = c.model.decode_end(self.y_hat, self.support,
+                                            self.mu, symbols)
+            self.close()
+            return False
+
+        def close(self) -> None:
+            for d in self.decoders:
+                d.close()
+            self.decoders = []
+
     @torch.no_grad()
     def decompress(self, strings: Sequence[Sequence[bytes]],
                    shape: Tuple[int, int], indexes=None,
@@ -343,49 +502,45 @@ class DCAECodec:
         from compress_with_indexes; the decoder then computes none itself.
         record (optional list): gets each slice's (indexes, symbols), as in
         compress."""
+        self._need("decompress", "g_s")
         if indexes is not None:
             return self._decompress_shipped_indexes(strings, shape, indexes,
                                                     record)
-        g = self._require_tables().gaussian
-        lut = g.lut   # built once, before the pool's threads read it
-        model, st, sd = self.model, self._scale_table, self.cfg.slice_dim
-        y_strings, z_strings = strings
-        B = len(z_strings)
-        zh, zw = int(shape[0]), int(shape[1])
-        y_h, y_w = zh * self.cfg.hyper_ratio, zw * self.cfg.hyper_ratio
-        z_hat = torch.as_tensor(self._decode_z_hat(z_strings, zh, zw),
-                                device=self.device)
-        decoders = []
-        for s in y_strings:
-            d = rans.RansDecoder()
-            d.set_stream(s)
-            decoders.append(d)
-
-        def decode_one(b: int, idx_np: np.ndarray) -> np.ndarray:
-            flat = decoders[b].decode_stream(
-                _nchw_flat(idx_np[b]), g.quantized_cdf, g.cdf_length,
-                g.offset, lut)
-            return _unflatten_chw(flat, y_h, y_w, sd)
-
+        job = self._DecodeJob(self, strings, shape, record)
         try:
-            ls, lm, support, mu, indexes = model.decode_start(z_hat, st)
-            y_hat = torch.zeros((B, y_h, y_w, 0), device=self.device)
-            for i in range(self.cfg.num_slices):
-                idx_np = indexes.cpu().numpy()
-                sym_np = np.stack(list(self._pool.map(
-                    lambda b: decode_one(b, idx_np), range(B))))
-                if record is not None:
-                    record.append((idx_np, sym_np))
-                symbols = torch.as_tensor(sym_np, device=self.device)
-                if i + 1 < self.cfg.num_slices:
-                    y_hat, support, mu, indexes = model.decode_step(
-                        i + 1, ls, lm, y_hat, support, mu, symbols, st)
-                else:
-                    x_hat = model.decode_end(y_hat, support, mu, symbols)
+            while job.advance():
+                pass
         finally:
-            for d in decoders:
-                d.close()
-        return {"x_hat": x_hat}
+            job.close()
+        return {"x_hat": job.x_hat}
+
+    @torch.no_grad()
+    def decompress_many(self, jobs: Sequence, interleave: int = 2
+                        ) -> List[dict]:
+        """Decode several (strings, shape) jobs, `interleave` at a time:
+        one job's host entropy decode overlaps another's device step.
+        Returns [{"x_hat"}] in the jobs' order; each x_hat equals
+        decompress's."""
+        self._need("decompress_many", "g_s")
+        results: List[Optional[dict]] = [None] * len(jobs)
+        pending = deque(enumerate(jobs))
+        active: List[tuple] = []
+        try:
+            while pending or active:
+                while pending and len(active) < max(1, int(interleave)):
+                    i, (strings, shape) = pending.popleft()
+                    active.append((i, self._DecodeJob(self, strings, shape)))
+                still = []
+                for i, job in active:
+                    if job.advance():
+                        still.append((i, job))
+                    else:
+                        results[i] = {"x_hat": job.x_hat}
+                active = still
+        finally:
+            for _, job in active:
+                job.close()
+        return results  # type: ignore[return-value]
 
     def _decompress_shipped_indexes(self, strings, shape, indexes,
                                     record: Optional[list]) -> dict:
@@ -419,12 +574,15 @@ class DCAECodec:
         return {"x_hat": self.model.decode_all(z_hat, symbols)}
 
     @torch.no_grad()
-    def compress_with_indexes(self, x) -> dict:
+    def compress_with_indexes(self, x, record: Optional[list] = None
+                              ) -> dict:
         """Fused compress that also returns the encoder's coding indexes,
         (S, B, yh, yw, sd) uint8, to ship with the streams:
-        decompress(..., indexes=...) then decodes in one device call."""
+        decompress(..., indexes=...) then decodes in one device call.
+        record: as in compress."""
+        self._need("compress_with_indexes", "g_a", "h_a")
         out = self._encode_arrays(x, "fused")
-        result = self._finish_fused(out)
+        result = self._finish_fused(out, record)
         result["indexes"] = out["y_indexes"].cpu().numpy()
         return result
 
@@ -494,6 +652,7 @@ class DCAECodec:
         batch i + 1's device work: _compress_device_dispatch queues
         everything and never waits for the device; _compress_device_fetch
         waits once and codes z on the host."""
+        self._need("compress_device", "g_a", "h_a")
         return self._compress_device_fetch(self._compress_device_dispatch(
             x, lanes, chain, unroll, certify, paired))
 
@@ -587,6 +746,7 @@ class DCAECodec:
         Payload overhead against classic: ONE K-uint32 lane-state header
         for the whole chain (chain=False: one a slice, the DTI1 layout)
         and 8 bytes per escape patch."""
+        self._need("compress_interleaved", "g_a", "h_a")
         g = self._require_tables().gaussian
         mode = "fused" if self.encode_mode == "fused" else "split"
         z_sym, y_sym, y_idx = self._fetch_encode_arrays(
@@ -644,6 +804,7 @@ class DCAECodec:
         replayed), then synthesis. Returns {"x_hat", "ok"}; ok is a ()
         bool tensor on the device, the lanes checksum (False on a corrupt
         stream or an encoder / decoder divergence)."""
+        self._need("decompress_interleaved", "g_s")
         return self._decompress_interleaved_device(
             *self._interleaved_inputs(enc))
 
@@ -761,6 +922,50 @@ class DCAECodec:
         t.start()
         return q, dead, t, err
 
+    def encdec_pipeline(self, batches: Sequence, decode_interleave: int = 2,
+                        queue_depth: int = 3) -> List[dict]:
+        """Serving loop of the classic format: a producer thread runs
+        compress() batch after batch (its host rANS releases the
+        interpreter lock) while this thread decodes, decode_interleave
+        encoded batches at a time through decompress_many. queue_depth
+        bounds the encodes nobody has decoded yet. Returns per-batch
+        {"strings", "shape", "x_hat"} in order; each equals compress() /
+        decompress() of that batch alone."""
+        self._need("encdec_pipeline", *HALF_TRANSFORMS)
+        batches = list(batches)
+        k = max(1, int(decode_interleave))
+        q, dead, t, err = self._start_encode_producer(
+            batches, self.compress, maxsize=max(k, queue_depth))
+        results: List[dict] = []
+
+        def flush(group: List[dict]) -> None:
+            decs = self.decompress_many(
+                [(e["strings"], e["shape"]) for e in group],
+                interleave=len(group))
+            for e, d in zip(group, decs):
+                results.append({"strings": e["strings"], "shape": e["shape"],
+                                "x_hat": d["x_hat"]})
+
+        group: List[dict] = []
+        try:
+            for _ in batches:
+                enc = q.get()
+                if enc is None:
+                    group = []
+                    break
+                group.append(enc)
+                if len(group) >= k:
+                    flush(group)
+                    group = []
+            if group:
+                flush(group)
+        finally:
+            dead.set()
+            t.join()
+        if err:
+            raise err[0]
+        return results
+
     def encdec_pipeline_interleaved(self, batches: Sequence,
                                     inflight: int = 3,
                                     dispatch_ahead: int = 1, **encode_kw
@@ -778,6 +983,7 @@ class DCAECodec:
         instead and tagged: every batch gets a result, in order.
         Returns per-batch {"x_hat", "ok", "shape", "profile"}, profile
         "interleaved" or "classic"."""
+        self._need("encdec_pipeline_interleaved", *HALF_TRANSFORMS)
         batches = list(batches)
 
         def dispatch(x):     # never waits for the device: cannot escape
@@ -847,6 +1053,7 @@ class DCAECodec:
         symbols at every slice (_roundtrip_check). split goes first, unless
         prefer_fused (the one-call encoder) asks for fused, which then gets
         criterion 2 before split is tried."""
+        self._need("self_check", "g_a", "h_a")
         if image is None:
             p = self.cfg.pad_multiple
             image = np.random.default_rng(0).uniform(
@@ -859,12 +1066,15 @@ class DCAECodec:
                     == staged["strings"]:
                 self.encode_mode = mode
                 return True
-            if mode == "fused" and prefer_fused:
+            if mode == "fused" and prefer_fused and \
+                    "g_s" not in self.model.omitted:
                 fused_rt_tried = True
                 if self._roundtrip_check(image, mode="fused"):
                     self.encode_mode = "fused"
                     return True
-        if not fused_rt_tried and self._roundtrip_check(image, mode="fused"):
+        # criterion 2 decodes: an encoder half certifies by criterion 1 only
+        if not fused_rt_tried and "g_s" not in self.model.omitted and \
+                self._roundtrip_check(image, mode="fused"):
             self.encode_mode = "fused"
             return True
         self.encode_mode = "staged"
@@ -890,17 +1100,22 @@ class DCAECodec:
     def compress_latent(self, x) -> np.ndarray:
         """Latent hand-off encode: the raw latent y (B, yh, yw, M) f32, no
         entropy coding."""
+        self._need("compress_latent", "g_a")
         return self.model.analysis(self._input(x)).cpu().numpy()
 
     @torch.no_grad()
     def decompress_latent(self, y) -> dict:
-        """Latent hand-off decode (DCAE.latent_decompress)."""
+        """Latent hand-off decode (DCAE.latent_decompress: it derives z
+        again, so it needs h_a beside g_s)."""
+        self._need("decompress_latent", "h_a", "g_s")
         y = torch.as_tensor(np.asarray(y, np.float32), device=self.device)
         return {"x_hat": self.model.latent_decompress(y)}
 
     def analyze_sizes(self, x) -> dict:
         """Bytes of the coded streams against the image, the raw latent and
-        the model."""
+        the model. model_params counts what this codec holds: the encoder
+        half's own parameters when it is one."""
+        self._need("analyze_sizes", "g_a", "h_a")
         x = np.asarray(x)
         enc = self.compress(x)
         y = self.compress_latent(x)

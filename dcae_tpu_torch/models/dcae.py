@@ -28,7 +28,7 @@ and the LRP bitwise, and both call the same functions here.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -45,13 +45,56 @@ from dcae_tpu_torch.ops.dictionary import DictionaryCrossAttention
 from dcae_tpu_torch.ops.layers import reset_layer, trunc_normal_
 
 
-class DCAE(nn.Module):
-    def __init__(self, cfg: DCAEConfig):
+# the one-sided transforms a half of a split deployment may leave out
+HALF_TRANSFORMS = ("g_a", "h_a", "g_s")
+
+
+class MissingTransform(nn.Module):
+    """Stands in for a transform this model does not hold (one half of a
+    split deployment): no parameters, and calling it raises."""
+
+    def __init__(self, name: str):
         super().__init__()
+        self.name = name
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError(
+            f"this model holds no {self.name}: it is one half of a split "
+            "deployment (models/split.py)")
+
+
+@torch.no_grad()
+def reset_modules(module: nn.Module, generator: torch.Generator) -> None:
+    """The layers' part of DCAE.reset_parameters, for any module built of
+    the DCAE's layers, in module order."""
+    for m in module.modules():
+        reset_layer(m, generator)
+        if isinstance(m, WMSA):
+            trunc_normal_(m.relative_position_params, 0.02, generator)
+        elif isinstance(m, Scale):
+            m.scale.fill_(1.0)
+        elif isinstance(m, DictionaryCrossAttention):
+            m.scale.fill_(1.0)
+        elif isinstance(m, EntropyBottleneck):
+            m.reset_parameters(generator)
+
+
+class DCAE(nn.Module):
+    def __init__(self, cfg: DCAEConfig, omit: Sequence[str] = ()):
+        """omit: transforms among g_a, h_a, g_s that this model does not
+        build (a split deployment's half): they hold no parameters, are
+        not in the state dict, and raise when called."""
+        super().__init__()
+        bad = set(omit) - set(HALF_TRANSFORMS)
+        if bad:
+            raise ValueError(f"only {HALF_TRANSFORMS} can be omitted, not "
+                             f"{sorted(bad)}")
         self.cfg = cfg
-        self.g_a = GAnalysis(cfg)
-        self.g_s = GSynthesis(cfg)
-        self.h_a = HyperAnalysis(cfg)
+        self.omitted = tuple(n for n in HALF_TRANSFORMS if n in omit)
+        build = {"g_a": GAnalysis, "h_a": HyperAnalysis, "g_s": GSynthesis}
+        for name in ("g_a", "g_s", "h_a"):
+            setattr(self, name, MissingTransform(name) if name in omit
+                    else build[name](cfg))
         self.h_z_s1 = HyperSynthesis(cfg)   # latent scales
         self.h_z_s2 = HyperSynthesis(cfg)   # latent means
         self.dt = nn.Parameter(torch.empty(cfg.dict_num, cfg.dict_dim))
@@ -77,16 +120,7 @@ class DCAE(nn.Module):
         """Seeded init with the JAX package's initializers: torch's layer
         defaults, trunc-normal(0.02) relative-position tables, unit scales,
         a N(0, 1) dictionary, the bottleneck's own init."""
-        for m in self.modules():
-            reset_layer(m, generator)
-            if isinstance(m, WMSA):
-                trunc_normal_(m.relative_position_params, 0.02, generator)
-            elif isinstance(m, Scale):
-                m.scale.fill_(1.0)
-            elif isinstance(m, DictionaryCrossAttention):
-                m.scale.fill_(1.0)
-            elif isinstance(m, EntropyBottleneck):
-                m.reset_parameters(generator)
+        reset_modules(self, generator)
         self.dt.copy_(torch.randn(self.dt.shape, generator=generator))
 
     def set_transform_dtype(self, dtype: torch.dtype) -> "DCAE":
@@ -104,7 +138,8 @@ class DCAE(nn.Module):
     @staticmethod
     def _run(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """A transform in its own parameter dtype; the result in f32."""
-        dtype = next(module.parameters()).dtype
+        # a MissingTransform has no parameters, and raises when called
+        dtype = next(module.parameters(), x).dtype
         return module(x.to(dtype)).to(torch.float32)
 
     def synthesis(self, y_hat: torch.Tensor) -> torch.Tensor:

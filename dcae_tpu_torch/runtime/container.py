@@ -29,6 +29,15 @@ package's decoder validates and otherwise ignores them. Patches are the
 (rare) Gaussian-tail symbols the stream carries clamped into their CDF
 row's in-range buckets; the decoder scatters the exact values back right
 after entropy decode.
+
+The latent hand-off's ("DLT1"), byte for byte the JAX package's: the raw
+analysis latent y instead of a coded stream.
+
+    b"DLT1" | >H h | >H w | >B dtype code | >f scale | >B ndim
+    | ndim x >I dim | raw values (little-endian)
+
+dtype code 0 float32, 1 float16, 2 bfloat16, 3 int8; scale is the int8
+dequantization multiplier (max|y| / 127) and 1.0 for the floats.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import struct
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def calculate_padding(h: int, w: int, p: int = 128):
@@ -194,3 +204,71 @@ def unpack_bin_interleaved(data: bytes, p: int = 128,
 
 def is_interleaved_bin(data: bytes) -> bool:
     return data[:4] in (_MAGIC_V2, _MAGIC_V2_CHAIN)
+
+
+# ---- the latent hand-off -------------------------------------------------
+
+_MAGIC_LATENT = b"DLT1"
+_LATENT_DTYPES = {0: "float32", 1: "float16", 2: "bfloat16", 3: "int8"}
+_LATENT_CODES = {v: k for k, v in _LATENT_DTYPES.items()}
+
+
+def pack_latent(y, size: Tuple[int, int], dtype: str = "float32") -> bytes:
+    """y: (B, yh, yw, M) analysis latent (numpy or tensor); size = (h, w)
+    unpadded; dtype: the shipped representation. int8 is scaled by max|y|
+    and rounded to nearest; bfloat16 rounds to nearest even (torch's cast,
+    bit-identical to the JAX package's ml_dtypes cast)."""
+    if dtype not in _LATENT_CODES:
+        raise ValueError(f"unsupported latent dtype {dtype!r}")
+    if torch.is_tensor(y):
+        y = y.detach().cpu().numpy()
+    y = np.asarray(y, np.float32)
+    scale = 1.0
+    if dtype == "int8":
+        amax = float(np.max(np.abs(y))) or 1.0
+        scale = amax / 127.0
+        payload = np.clip(np.rint(y / scale), -128, 127).astype(np.int8)
+    elif dtype == "bfloat16":
+        payload = torch.from_numpy(np.ascontiguousarray(y)).to(
+            torch.bfloat16).view(torch.int16).numpy()
+    else:
+        payload = y.astype(dtype)
+    out = _MAGIC_LATENT
+    out += struct.pack(">HHBf", size[0], size[1], _LATENT_CODES[dtype],
+                       scale)
+    out += struct.pack(">B", y.ndim)
+    for d in y.shape:
+        out += struct.pack(">I", d)
+    out += payload.astype(payload.dtype.newbyteorder("<")).tobytes()
+    return out
+
+
+def unpack_latent(data: bytes, p: int = 128):
+    """-> (y float32 numpy (B, yh, yw, M), padding, (h, w))."""
+    if data[:4] != _MAGIC_LATENT:
+        raise ValueError("not a DLT1 latent container")
+    h, w, code, scale = struct.unpack(">HHBf", data[4:13])
+    (ndim,) = struct.unpack(">B", data[13:14])
+    off = 14
+    shape = []
+    for _ in range(ndim):
+        (d,) = struct.unpack(">I", data[off: off + 4])
+        shape.append(d)
+        off += 4
+    dtype = _LATENT_DTYPES[code]
+    raw = np.frombuffer(data[off:], dtype="<i2" if dtype == "bfloat16"
+                        else np.dtype(dtype).newbyteorder("<"))
+    raw = raw.reshape(shape)
+    if dtype == "bfloat16":
+        y = torch.from_numpy(raw.astype(np.int16)).view(
+            torch.bfloat16).to(torch.float32).numpy()
+    else:
+        y = raw.astype(np.float32)
+    if dtype == "int8":
+        y = y * scale
+    _, padding = calculate_padding(h, w, p)
+    return y, padding, (h, w)
+
+
+def is_latent_bin(data: bytes) -> bool:
+    return data[:4] == _MAGIC_LATENT

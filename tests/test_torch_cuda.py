@@ -655,3 +655,84 @@ def test_requires_grad_input_yields_grad_fn(card, kernel, dtype):
         assert t.grad is not None and t.grad.dtype == dt
         assert bool(torch.isfinite(t.grad.float()).all())
     assert args[0].grad is None
+
+
+# ---------------------------------------------------- split deployment --
+
+def _tiny_w8():
+    from chip_smoke import TINY_W8
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.dcae import DCAE
+
+    cfg = DCAEConfig.tiny(**TINY_W8)
+    init = DCAE(cfg)
+    init.reset_parameters(torch.Generator().manual_seed(0))
+    return cfg, init.state_dict()
+
+
+@pytest.mark.cuda
+def test_split_halves_on_card_equal_halves_on_cpu(card):
+    """An encoder half on the card writes the streams an encoder half on
+    the CPU writes (f32, the tiny window-8 model, whose widths the window
+    kernels take); a decoder half on the card decodes them exactly, with
+    the encoder's indexes shipped and without."""
+    from dcae_tpu_torch.models.split import make_split_pair
+
+    cfg, sd = _tiny_w8()
+    x = np.random.default_rng(3).uniform(0, 1, (2, 128, 128, 3)).astype(
+        np.float32)
+    x = np.clip(x * 0.3 + 0.35, 0, 1)
+    cpu_enc, cpu_dec = make_split_pair(cfg, sd, "cpu", "cpu")
+    enc, dec = make_split_pair(cfg, sd, "cuda", "cuda")
+    want = cpu_enc.compress(x)
+    rec = []
+    got = enc.compress(x, record=rec)
+    assert got["strings"] == want["strings"]
+    dec_rec = []
+    out = dec.decompress(got["strings"], got["shape"], record=dec_rec)
+    assert len(dec_rec) == len(rec) == cfg.num_slices
+    for (ei, es), (di, ds) in zip(rec, dec_rec):
+        np.testing.assert_array_equal(di, ei)
+        np.testing.assert_array_equal(ds, es)
+    shipped = enc.codec.compress_with_indexes(x)
+    out2 = dec.decompress(shipped["strings"], shipped["shape"],
+                          indexes=shipped["indexes"])
+    ref = cpu_dec.decompress(want["strings"], want["shape"])["x_hat"]
+    for o in (out["x_hat"], out2["x_hat"]):
+        assert _rel_err(o.cpu(), ref) < 1e-4
+    for c in (cpu_enc, cpu_dec, enc, dec):
+        c.close()
+
+
+@pytest.mark.cuda
+def test_split_step_on_card_equals_cpu(card):
+    """The tiny window-8 split step with both halves on the card against
+    the same step on the CPU (fixed noise), held to the tiny card step's
+    bars (chip_smoke.tiny_step_passes, calibrated in PR 7)."""
+    import chip_smoke as cs
+    from dcae_tpu_torch.entropy import ops
+    from dcae_tpu_torch.train.split_step import (create_split_train_state,
+                                                 make_split_train_step)
+    from dcae_tpu_torch.train.state import make_optimizer
+
+    cfg, _ = _tiny_w8()
+    batch = torch.from_numpy(cs.train_batch(2, 128, seed=3))
+    lr = 1e-4
+    tx = make_optimizer(lr, 1e-3, 1.0)
+
+    def step(dev):
+        model = cs.seeded_model(cfg, "cpu")
+        state = create_split_train_state(model, tx, dev, dev)
+        _, m = make_split_train_step(model, tx, cs.LMBDA, "mse", dev,
+                                     dev)(state, batch)
+        return ({k: float(v) for k, v in m.items()},
+                {n: p.grad.cpu() for n, p in model.named_parameters()},
+                {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+    real, ops.noise_quantize = ops.noise_quantize, cs.fixed_noise
+    try:
+        ref, got = step("cpu"), step("cuda")
+    finally:
+        ops.noise_quantize = real
+    res = cs.compare_steps(ref, got, lr)
+    assert cs.tiny_step_passes(res), res
