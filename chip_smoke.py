@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase kernels
     python3 chip_smoke.py --phase train
     python3 chip_smoke.py --phase split
+    python3 chip_smoke.py --phase serve
 
 Phases, in order:
   build      nvcc builds every kernel of csrc/ from this checkout (one
@@ -104,6 +105,32 @@ Phases, in order:
                         subprocesses on 2 PNGs: exit 0, each .bin the bytes
                         of this process's codec, each PNG its decode.
              It prints one JSON line of its own ({"split": ...}).
+  serve      serving and data-parallel deployment, the full-size bf16
+             codec (seeded random weights) on structured 768x512 images:
+             loops      encdec_pipeline_interleaved and encdec_pipeline
+                        against sequential calls on 3 and 8 batches of 2, in
+                        turns (sequential, loop, loop, sequential; 3 rounds):
+                        results bitwise the sequential ones, every batch
+                        tagged interleaved; ms per image with the spread;
+                        the host waits of one loop by line;
+             loopback   a BitstreamServer on 127.0.0.1 decoding on arrival
+                        (tools/server.py's decoder, its own codec), fed 4
+                        classic .bin payloads by tools/client.py and 4 DTI2
+                        payloads: received bytes = sent, served x_hat
+                        bitwise the direct decode, 15 / 17 launches (+ 5
+                        lane decoders), receive-to-decoded ms;
+             profiling  utils/profiling.report of g_a (TFLOP/s), and a
+                        256x256 staged encode of the full-width f32 model
+                        dumped on the card and on the CPU
+                        (utils/debug.dump_codec_run) and compared
+                        (recorded, not a bar);
+             dp         a one-rank NCCL process group: make_mesh gives
+                        dp = 1, a full-width f32 shard_train_step step (8 x
+                        256x256) equals the plain make_train_step step
+                        (bitwise, or 1e-6 of each tensor's largest), its ms
+                        beside the train phase's step, tools/eval_sharded
+                        on 4 PNGs.
+             It prints one JSON line of its own ({"serve": ...}).
   profile    (only with --phase profile) device time of one slice run by
              kernel, from torch.profiler: staged, shipped-index and
              interleaved pairs; then of one full-width training step.
@@ -1340,9 +1367,11 @@ def _strings(enc: dict) -> dict:
 
 
 def print_device_profile(prof, label: str, wall: float, what: str) -> None:
-    """Device time of a profiled window by kernel group, the share of the
-    wall time the device was busy, and the longest kernels."""
+    """Device time of a profiled window by kernel kind (utils/profiling.py:
+    op_type), the share of the wall time the device was busy, and the
+    longest kernels."""
     from torch.autograd import DeviceType
+    from dcae_tpu_torch.utils.profiling import op_type
 
     dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                             getattr(e, "self_cuda_time_total", 0))
@@ -1353,23 +1382,7 @@ def print_device_profile(prof, label: str, wall: float, what: str) -> None:
     busy_ms = sum(dev(e) for e in events) / 1e3
     groups: dict = {}
     for e in events:
-        name = e.key
-        # both wmsa entries share wmsa_{mma,pack,fma}_kernel<kBlock>;
-        # every conv_glu phase (ln / rows, pack, gemm, gate) carries
-        # conv_glu in its name, the bf16 ones conv_glu_bf16, and is
-        # tested before "gemm";
-        # cuDNN's implicit-GEMM convolutions (fprop, dgrad, wgrad) are
-        # convolutions, not matrix products
-        low = name.lower()
-        g = ("rans_lanes kernels" if "rans_lanes" in name else
-             "wmsa_attention kernels" if "wmsa_" in name
-             and "<false>" in name
-             else "wmsa_block kernels" if "wmsa_" in name else
-             "conv_glu bf16 kernels" if "conv_glu_bf16" in name else
-             "conv_glu f32 kernels" if "conv_glu" in name else
-             "convolution" if any(k in low for k in (
-                 "conv", "cudnn", "fprop", "dgrad", "wgrad")) else
-             "gemm" if "gemm" in low or "cutlass" in low else "other")
+        g = op_type(e.key)
         groups[g] = groups.get(g, 0.0) + dev(e) / 1e3
     print(f"profile {label}: {what}: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}%)",
@@ -2523,11 +2536,401 @@ def split_phase(joint_train: dict | None = None) -> dict:
     return out
 
 
+def spread_text(runs: list) -> str:
+    return (f"{float(np.median(runs)):.2f} ({min(runs):.2f}-"
+            f"{max(runs):.2f})")
+
+
+def host_waits(fn) -> dict:
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): every operation
+    that made a thread of this process wait for the device, counted by the
+    line of Python that issued it."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    where: dict = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return where
+
+
+def loops_part(codec, batches: list) -> dict:
+    """The two serving loops against sequential calls on the same batches
+    (2 x 768x512 each), in turns inside this process: sequential, loop,
+    loop, sequential, three rounds, for 3 and for 8 batches. Each loop's
+    results must be bitwise the sequential ones (and tagged interleaved);
+    its ms per image are printed beside theirs with the spread, and the
+    host waits of one loop are counted by line."""
+    import torch
+
+    def seq_interleaved(bs):
+        return [codec.decompress_interleaved(codec.compress_device(b))
+                for b in bs]
+
+    def seq_classic(bs):
+        out = []
+        for b in bs:
+            e = codec.compress(b)
+            out.append({**e, **codec.decompress(**_strings(e))})
+        return out
+
+    loops = {
+        "interleaved": (seq_interleaved,
+                        lambda bs: codec.encdec_pipeline_interleaved(bs)),
+        "classic": (seq_classic, lambda bs: codec.encdec_pipeline(bs)),
+    }
+    res: dict = {}
+    for name, (seq, loop) in loops.items():
+        ref = seq(batches)
+        got = loop(batches)                      # warm-up and the check
+        torch.cuda.synchronize()
+        same = len(got) == len(ref) and all(
+            torch.equal(g["x_hat"], r["x_hat"]) for g, r in zip(got, ref))
+        if name == "classic":
+            same = same and all(g["strings"] == r["strings"]
+                                for g, r in zip(got, ref))
+        else:
+            same = same and all(bool(g["ok"]) for g in got)
+            tags = [g["profile"] for g in got]
+            if tags != ["interleaved"] * len(batches):
+                fail(f"serve loops: {name}: profiles {tags}")
+        if not same:
+            fail(f"serve loops: {name}: results differ from sequential "
+                 "calls")
+        res[name] = {"bitwise_equal_sequential": same}
+        for nb in (3, 8):
+            bs = batches[:nb]
+            runs = {"sequential": [], "loop": []}
+            for _ in range(3):
+                for kind in ("sequential", "loop", "loop", "sequential"):
+                    fn = seq if kind == "sequential" else loop
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(bs)
+                    torch.cuda.synchronize()
+                    runs[kind].append((time.perf_counter() - t0) * 1e3
+                                      / (nb * BATCH))
+            s_med = float(np.median(runs["sequential"]))
+            l_med = float(np.median(runs["loop"]))
+            res[name][f"{nb}_batches"] = {
+                "sequential_ms_per_image": s_med, "loop_ms_per_image": l_med,
+                "sequential_ms_runs": runs["sequential"],
+                "loop_ms_runs": runs["loop"],
+                "loop_within_sequential_spread":
+                    l_med <= max(runs["sequential"])}
+            print(f"serve loops: {name}, {nb} batches of {BATCH}: loop "
+                  f"{spread_text(runs['loop'])} ms an image, sequential "
+                  f"{spread_text(runs['sequential'])}", flush=True)
+        res[name]["host_waits_loop_3"] = host_waits(lambda: loop(
+            batches[:3]))
+        print(f"serve loops: {name}: host waits over one loop of 3 "
+              f"batches, by line: {res[name]['host_waits_loop_3']}",
+              flush=True)
+    return res
+
+
+def loopback_part(codec, imgs: np.ndarray) -> dict:
+    """A BitstreamServer on 127.0.0.1 decoding on arrival (tools/server.py's
+    payload_decoder, its own codec on the card), fed by the port's client
+    (tools/client.py: 4 classic .bin payloads) and by send_bytes (4 DTI2
+    payloads of compress_device + pack_bin_interleaved), one payload in
+    flight at a time. Every received file must be the bytes sent, every
+    served x_hat bitwise the direct decode of the same payload, and each
+    decode must launch 15 / 17 kernels (+ 5 lane decoders for DTI2); the
+    receive-to-decoded ms an image are printed."""
+    import threading
+
+    import torch
+    from PIL import Image
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+    from dcae_tpu_torch.ops.layers import crop_spatial, pad_spatial
+    from dcae_tpu_torch.runtime import container
+    from dcae_tpu_torch.runtime.service import BitstreamServer, send_bytes
+    from dcae_tpu_torch.tools import client, server as server_tool
+
+    # a server is its own deployment: its own codec (the same seeded
+    # weights and the encoder's baked tables), built before start()
+    scodec = DCAECodec(DCAEConfig(), dtype=torch.bfloat16, seed=0,
+                       tables=codec.tables)
+    scodec.patch_cap = codec.patch_cap
+    served: dict = {}
+    arrived: dict = {}
+    done = threading.Event()
+
+    def on_decoded(name, x_hat):
+        torch.cuda.synchronize()
+        served[name] = (x_hat, (time.perf_counter() - arrived[name]) * 1e3)
+        done.set()
+
+    res: dict = {"classic": [], "dti2": []}
+    with tempfile.TemporaryDirectory(prefix="dcae_serve_") as tmp:
+        recv = os.path.join(tmp, "recv")
+        decode = server_tool.payload_decoder(scodec, recv, on_decoded)
+
+        def on_payload(name, data):
+            arrived[name] = time.perf_counter()
+            try:
+                decode(name, data)
+            except BaseException:
+                done.set()             # the server prints it and goes on
+                raise
+
+        srv = BitstreamServer(0, recv, on_payload)
+        srv.start(background=True)
+        try:
+            paths = []
+            for i, img in enumerate(imgs):
+                paths.append(os.path.join(tmp, f"img{i}.png"))
+                Image.fromarray(img).save(paths[-1])
+            payloads = []
+            for path in paths:
+                payloads.append(("classic",) + client.encode_image(codec,
+                                                                   path))
+            for i, img in enumerate(imgs):
+                x = codec._input(img[None])
+                padded, _ = pad_spatial(x, codec.cfg.pad_multiple)
+                blob = container.pack_bin_interleaved(
+                    codec.compress_device(padded), x.shape[1:3])
+                payloads.append(("dti2", f"dti{i}.bin", blob))
+            # the first of each kind warms the server's codec up
+            warm = [payloads[0], payloads[len(imgs)]]
+            for kind, name, blob in warm + payloads:
+                done.clear()
+                for w in _wrappers().values():
+                    w.launches = 0
+                send_bytes(name, blob, "127.0.0.1", srv.bound_port)
+                if not done.wait(120):
+                    fail(f"serve loopback: no decode of {name}")
+                counts = {k: w.launches for k, w in _wrappers().items()}
+                if name not in served:
+                    fail(f"serve loopback: {name} did not decode")
+                res[kind].append({"name": name, "bytes": len(blob),
+                                  "launches": counts,
+                                  "receive_to_decoded_ms":
+                                      served[name][1]})
+            srv.stop()
+            for kind, name, blob in payloads:
+                with open(os.path.join(recv, f"received_{name}"),
+                          "rb") as f:
+                    if f.read() != blob:
+                        fail(f"serve loopback: received_{name} differs "
+                             "from the payload sent")
+                cfg = scodec.cfg
+                if kind == "classic":
+                    strings, z_shape, padding, _ = container.unpack_bin(
+                        blob, cfg.pad_multiple, cfg.z_downsample)
+                    direct = scodec.decompress(strings, z_shape)
+                else:
+                    enc, padding, _ = container.unpack_bin_interleaved(
+                        blob, cfg.pad_multiple, cfg.z_downsample)
+                    direct = scodec.decompress_interleaved(enc)
+                if not torch.equal(served[name][0],
+                                   crop_spatial(direct["x_hat"], padding)):
+                    fail(f"serve loopback: served {name} is not the direct "
+                         "decode")
+                if not os.path.exists(os.path.join(
+                        recv, os.path.splitext(name)[0] + ".png")):
+                    fail(f"serve loopback: no PNG of {name}")
+        finally:
+            srv.stop()
+            scodec.close()
+    lanes = {"classic": 0, "dti2": codec.cfg.num_slices}
+    for kind, rows in res.items():
+        rows[:] = rows[1:]                       # the warm-up payload
+        for r in rows:
+            check_counts(f"serve loopback {r['name']}", r["launches"],
+                         {"wmsa_block": 15, "conv_glu": 17,
+                          "wmsa_attention": 0, "rans_lanes_encode": 0,
+                          "rans_lanes_decode": lanes[kind]})
+    out = {"bitwise_equal_direct_decode": True, "payloads": res}
+    for kind, rows in res.items():
+        ms = [r["receive_to_decoded_ms"] for r in rows]
+        out[f"{kind}_receive_to_decoded_ms_median"] = float(np.median(ms))
+        print(f"serve loopback: {kind}: {len(rows)} payloads of "
+              f"{[r['bytes'] for r in rows]} bytes, receive to decoded "
+              f"{spread_text(ms)} ms an image", flush=True)
+    return out
+
+
+def dp_part(joint_train: dict | None) -> dict:
+    """A process group of world size 1 on NCCL: make_mesh gives dp = 1; a
+    full-width f32 shard_train_step step (8 x 256x256, TF32 off) against
+    the plain make_train_step step from the same weights and noise seed
+    (parameters bitwise, or within 1e-6 of each tensor's largest); the dp
+    step's ms; tools/eval_sharded.main on 4 PNGs."""
+    import contextlib
+    import io
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from PIL import Image
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.parallel import mesh as pmesh, multihost
+    from dcae_tpu_torch.tools import eval_sharded
+    from dcae_tpu_torch.train.state import create_train_state, make_optimizer
+    from dcae_tpu_torch.train.step import make_train_step
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dev = multihost.initialize(coordinator=f"127.0.0.1:{port}",
+                               num_processes=1, process_id=0)
+    res: dict = {}
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"serve dp: backend {dist.get_backend()}, not nccl")
+        mesh = pmesh.make_mesh()
+        res["mesh"] = mesh.shape
+        if mesh.shape != {"dp": 1, "sp": 1} or mesh.device != dev:
+            fail(f"serve dp: mesh {mesh.shape} on {mesh.device}")
+        batch = torch.from_numpy(train_batch()).to(dev)
+        tx = make_optimizer(1e-4, 1e-3, 1.0)
+        states, steps = [], []
+        for sharded in (False, True):
+            model = seeded_model(DCAEConfig(), dev)
+            state = create_train_state(
+                model, tx, torch.Generator(device=dev).manual_seed(1))
+            step = make_train_step(model, tx, LMBDA, "mse")
+            states.append(state)
+            steps.append(pmesh.shard_train_step(step, mesh)
+                         if sharded else step)
+        (_, m_plain), _, _ = counted(lambda: steps[0](states[0], batch))
+        (_, m_dp), counts, _ = counted(lambda: steps[1](states[1], batch))
+        check_finite(m_dp, states[1])
+        worst, bitwise = 0.0, True
+        for a, b in zip(states[1].model.parameters(),
+                        states[0].model.parameters()):
+            d = float((a - b).detach().abs().max())
+            bitwise = bitwise and d == 0.0
+            worst = max(worst, d / max(float(b.detach().abs().max()),
+                                       1e-30))
+        loss_d = abs(float(m_dp["loss"]) - float(m_plain["loss"]))
+        res.update({"params_bitwise_equal": bitwise,
+                    "params_max_rel_diff": worst,
+                    "loss_abs_diff": loss_d, "launches_step": counts})
+        runs = timed_steps(steps[1], states[1], batch, 7)[2:]
+        res["dp_step_ms_median"] = float(np.median(runs))
+        res["dp_step_ms_runs"] = runs
+        if joint_train is not None:
+            res["joint_step_ms_median"] = joint_train["step_ms_median"]
+        del states, steps, model, state, batch
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="dcae_dp_") as tmp:
+            for i, img in enumerate(synthetic_kodak(4, 256, 256, seed=41)):
+                Image.fromarray(img).save(os.path.join(tmp, f"im{i}.png"))
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                ev = eval_sharded.main(["--data", tmp, "--batch-size", "2"])
+        print(text.getvalue(), end="", flush=True)
+        res["eval_sharded"] = ev
+        res["eval_sharded_mesh_line"] = \
+            "mesh: dp=1 sp=1 over 1/1 devices" in text.getvalue()
+    finally:
+        dist.destroy_process_group()
+    print("serve dp: " + json.dumps(res), flush=True)
+    if worst > 1e-6 or loss_d > 1e-6 * abs(float(m_plain["loss"])):
+        fail(f"serve dp: the dp = 1 step differs from the plain step "
+             f"(parameters {worst:.3e}, loss {loss_d:.3e})")
+    check_counts("serve dp step", counts,
+                 {"wmsa_block": 30, "conv_glu": 29, **NO_LANES,
+                  "wmsa_attention": 0})
+    if not res["eval_sharded_mesh_line"] or ev["images"] != 4 or not all(
+            np.isfinite(ev[k]) for k in ("loss", "bpp_loss", "psnr")):
+        fail(f"serve dp: eval_sharded: {ev}")
+    return res
+
+
+def profile_debug_part(codec, imgs: np.ndarray) -> dict:
+    """utils/profiling.report of g_a on the batch; a 256x256 staged encode
+    of the full-width f32 model dumped by utils/debug.dump_codec_run on
+    the card and on the CPU, and compare_dumps of the two (recorded)."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+    from dcae_tpu_torch.utils import debug, profiling
+
+    x = codec._input(imgs)
+    with torch.no_grad():
+        rep = profiling.report(codec.model.analysis, x, label="g_a")
+    print(f"serve profiling: g_a of {BATCH} x 768x512 bf16: "
+          f"{rep['median_ms']:.3f} ms, {rep['gflops']:.1f} GFLOP, "
+          f"{rep['tflops_per_s']:.2f} TFLOP/s, ~{rep['hbm_gb_per_s']:.0f} "
+          "GB/s (bytes estimated)", flush=True)
+    one = synthetic_kodak(1, 256, 256, seed=51)
+    out = {"g_a_report": rep}
+    with tempfile.TemporaryDirectory(prefix="dcae_dump_") as root:
+        for tag, device in (("card", "cuda"), ("cpu", "cpu")):
+            c = DCAECodec(DCAEConfig(), seed=0, device=device)
+            c.update()
+            debug.dump_codec_run(c, one, root, tag)
+            c.close()
+        report = debug.compare_dumps(root, "card", "cpu")
+    out["compare_dumps"] = report
+    for name, e in report.items():
+        print(f"serve debug: card vs cpu {name}: " + json.dumps(e),
+              flush=True)
+    if set(report) != {f"{n}.npy" for n in (
+            "y", "z_symbols", "z_hat", "latent_scales", "latent_means",
+            *(f"{k}_{i}" for k in ("mu", "indexes", "symbols")
+              for i in range(5)))} | {"y_string.bin", "z_string.bin"}:
+        fail(f"serve debug: dump names {sorted(report)}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_phase(joint_train: dict | None = None) -> dict:
+    """Serving and data-parallel deployment on the card: the serving
+    loops against sequential calls, a loopback server decoding on arrival,
+    dp over a one-rank NCCL group, profiling and the tensor dump."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+
+    t0 = time.perf_counter()
+    codec = DCAECodec(DCAEConfig(), dtype=torch.bfloat16, seed=0)
+    codec.update()
+    if not codec.self_check() or codec.encode_mode == "staged":
+        fail("serve: self_check did not certify a one-fetch encoder mode")
+    batches = list(synthetic_kodak(8 * BATCH, seed=21).reshape(
+        8, BATCH, 512, 768, 3))
+    open_patch_cap(codec, codec._input(batches[0]), "serve")
+    out = {"loops": loops_part(codec, batches)}
+    out["loopback"] = loopback_part(codec, synthetic_kodak(4, seed=31))
+    out["profiling"] = profile_debug_part(codec, batches[0])
+    codec.close()
+    del codec
+    torch.cuda.empty_cache()
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    try:
+        out["dp"] = dp_part(joint_train)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    out["seconds"] = time.perf_counter() - t0
+    print(f"serve: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "reference",
                                         "slice", "train", "split",
-                                        "profile", "bands"),
+                                        "serve", "profile", "bands"),
                     default="all",
                     help="one phase only; profile (not part of all) traces "
                     "the slice with torch.profiler; bands (not part of all) "
@@ -2571,6 +2974,9 @@ def main() -> int:
     split_res = None
     if args.phase in ("all", "split"):
         split_res = split_phase(train_res)
+    serve_res = None
+    if args.phase in ("all", "serve"):
+        serve_res = serve_phase(train_res)
     if args.phase == "profile":
         profile_phase()
     if args.phase == "bands":
@@ -2598,6 +3004,8 @@ def main() -> int:
                           "slice": slice_res, "train": train_res}))
     if split_res is not None:
         print(json.dumps({"split": split_res}))
+    if serve_res is not None:
+        print(json.dumps({"serve": serve_res}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

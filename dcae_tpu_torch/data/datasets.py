@@ -16,7 +16,7 @@ from __future__ import annotations
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 
@@ -88,13 +88,23 @@ class ImageFolder:
                                np.random.default_rng(seed))
         return center_crop(img, self.patch_size)
 
+    @staticmethod
+    def epoch_seed(epoch: int) -> int:
+        """The seed of an epoch's order, the JAX package's. A str's hash()
+        is salted per process: the processes of a data-parallel run take
+        one process's (batches' order_seed)."""
+        return hash(("epoch", epoch)) % (2 ** 31)
+
     def batches(self, batch_size: int, epoch: int = 0,
-                drop_last: bool = True) -> Iterator[np.ndarray]:
-        """One epoch of NHWC float32 batches, loaded by a thread pool."""
+                drop_last: bool = True, order_seed: Optional[int] = None
+                ) -> Iterator[np.ndarray]:
+        """One epoch of NHWC float32 batches, loaded by a thread pool;
+        training batches in the order of order_seed (default
+        epoch_seed(epoch))."""
         order = np.arange(len(self.files))
         if self.split == "train":
-            np.random.default_rng(hash(("epoch", epoch)) % (2 ** 31)
-                                  ).shuffle(order)
+            np.random.default_rng(self.epoch_seed(epoch) if order_seed is None
+                                  else order_seed).shuffle(order)
         for start in range(0, len(order), batch_size):
             idx = order[start: start + batch_size]
             if drop_last and len(idx) < batch_size:

@@ -1,8 +1,46 @@
-"""Quantization and bounding primitives of the entropy models."""
+"""Quantization and bounding primitives of the entropy models, and the
+training noise's draw."""
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+# (rank, world) of a data-parallel step on this thread, else None
+_dp = threading.local()
+
+
+@contextlib.contextmanager
+def dp_noise(rank: int, world: int):
+    """Inside: every training-noise draw (draw_noise) is made for the
+    global batch, world x the local rows, and this rank keeps its rows
+    (rank's block), as a partitioned program on the whole batch draws it.
+    With the same generator state on every rank, a data-parallel step then
+    sees the noise of the one-device step on the global batch."""
+    before = getattr(_dp, "shard", None)
+    _dp.shard = (int(rank), int(world))
+    try:
+        yield
+    finally:
+        _dp.shard = before
+
+
+def draw_noise(shape, generator: torch.Generator, dtype, device,
+               normal: bool = False) -> torch.Tensor:
+    """U[0, 1) (normal: N(0, 1)) of `shape` (batch first) from
+    `generator`; inside dp_noise, this rank's rows of the global batch's
+    draw."""
+    shard = getattr(_dp, "shard", None)
+    rows = shape[0]
+    if shard is not None:
+        shape = (rows * shard[1], *shape[1:])
+    draw = torch.randn if normal else torch.rand
+    noise = draw(shape, generator=generator, dtype=dtype, device=device)
+    if shard is not None:
+        noise = noise[shard[0] * rows:(shard[0] + 1) * rows]
+    return noise
 
 
 def ste_round(x: torch.Tensor) -> torch.Tensor:
@@ -34,9 +72,8 @@ def noise_quantize(x: torch.Tensor, generator: torch.Generator
                    ) -> torch.Tensor:
     """Additive U(-0.5, 0.5) noise, the training-time surrogate of
     rounding. The noise is drawn from `generator`, which must live on x's
-    device."""
-    noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
-                       device=x.device)
+    device (draw_noise)."""
+    noise = draw_noise(x.shape, generator, x.dtype, x.device)
     return x + (noise - 0.5)
 
 

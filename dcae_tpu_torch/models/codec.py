@@ -51,8 +51,6 @@ GPU and without device="cpu" they raise.
 
 from __future__ import annotations
 
-import queue
-import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
@@ -167,6 +165,7 @@ class DCAECodec:
         # the coding tables change: (tables they were built from, value)
         self._slot_dev = (None, None)         # (tables, luts)
         self._enc_lut_dev = (None, None)
+        self._medians_host = (None, None)     # (tables, numpy medians)
 
     def close(self) -> None:
         self._pool.shutdown()
@@ -178,10 +177,20 @@ class DCAECodec:
         uint8 crosses to the device at 1 byte/pixel and is normalized
         there."""
         t = torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x
-        t = t.to(self.device)
+        t = self._upload(t)
         if t.dtype == torch.uint8:
             return t.to(torch.float32) / 255.0
         return t.to(torch.float32)
+
+    def _upload(self, t) -> torch.Tensor:
+        """A host array or tensor onto the device without waiting for it:
+        on the card through pinned memory, a copy queued on the current
+        stream (a pageable copy would wait for all work queued before
+        it)."""
+        t = torch.from_numpy(t) if isinstance(t, np.ndarray) else t
+        if self.device.type == "cuda" and not t.is_cuda:
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     @property
     def role(self) -> str:
@@ -373,7 +382,7 @@ class DCAECodec:
             for b in range(B):
                 sym_chunks[b].append(_nchw_flat(sym_np[b]))
                 idx_chunks[b].append(_nchw_flat(idx_np[b]))
-            symbols = torch.as_tensor(sym_np, device=self.device)
+            symbols = self._upload(sym_np)
 
         y_strings = list(self._pool.map(
             lambda b: rans.encode_with_indexes(
@@ -385,10 +394,16 @@ class DCAECodec:
                       ) -> np.ndarray:
         """Host-decode the z streams and dequantize around the medians, as
         the encoder did."""
-        f = self._require_tables().factorized
+        t = self._require_tables()
+        f = t.factorized
         C = self.cfg.eb_channels
         z_index = np.repeat(np.arange(C, dtype=np.int32), zh * zw)
-        medians = self.model.eb_medians().detach().cpu().numpy()
+        src, medians = self._medians_host
+        if src is not t:
+            # fetched once per table bake: a decode never waits for the
+            # device here
+            medians = self.model.eb_medians().detach().cpu().numpy()
+            self._medians_host = (t, medians)
         z_hat = np.empty((len(z_strings), zh, zw, C), np.float32)
         for b, s in enumerate(z_strings):
             sym = rans.decode_with_indexes(s, z_index, f.quantized_cdf,
@@ -428,8 +443,7 @@ class DCAECodec:
             zh, zw = int(shape[0]), int(shape[1])
             r = codec.cfg.hyper_ratio
             self.y_h, self.y_w = zh * r, zw * r
-            z_hat = torch.as_tensor(codec._decode_z_hat(z_strings, zh, zw),
-                                    device=codec.device)
+            z_hat = codec._upload(codec._decode_z_hat(z_strings, zh, zw))
             self.decoders = []
             for s in y_strings:
                 d = rans.RansDecoder()
@@ -472,7 +486,7 @@ class DCAECodec:
             if self.x_hat is not None:
                 return False
             c = self.c
-            symbols = torch.as_tensor(self._host_decode(), device=c.device)
+            symbols = c._upload(self._host_decode())
             i = self.slice + 1
             if i < c.cfg.num_slices:
                 self.y_hat, self.support, self.mu, indexes = \
@@ -553,8 +567,7 @@ class DCAECodec:
         y_h, y_w = zh * self.cfg.hyper_ratio, zw * self.cfg.hyper_ratio
         sd, S = self.cfg.slice_dim, self.cfg.num_slices
         idx = np.asarray(indexes).astype(np.int32)    # (S, B, yh, yw, sd)
-        z_hat = torch.as_tensor(self._decode_z_hat(z_strings, zh, zw),
-                                device=self.device)
+        z_hat = self._upload(self._decode_z_hat(z_strings, zh, zw))
         per = y_h * y_w * sd
 
         def decode_one(b: int) -> np.ndarray:
@@ -569,8 +582,7 @@ class DCAECodec:
                        axis=1)
         if record is not None:
             record.extend(zip(idx, sym))
-        symbols = torch.as_tensor(np.concatenate(list(sym), axis=-1),
-                                  device=self.device)
+        symbols = self._upload(np.concatenate(list(sym), axis=-1))
         return {"x_hat": self.model.decode_all(z_hat, symbols)}
 
     @torch.no_grad()
@@ -685,23 +697,32 @@ class DCAECodec:
                 x, st, enc_sf, offs, maxpos, stride, K, unroll,
                 self.patch_cap, chain)
             z_symbols = res["z_symbols"]
-        # everything the fetch must know before it sizes its copies
+        # the word and patch counts and the flags
         head = torch.cat([
             res["n_words"], res["patch_count"],
             torch.stack([res["escape"], res["patch_overflow"]]).to(
                 torch.int32)])
-        return {"res": res, "head": head, "z_symbols": z_symbols,
-                "cap": n_slice + 1, "K": K, "unroll": int(unroll),
-                "chain": bool(chain), "paired": bool(paired)}
+        # every buffer the container may need, copied whole (the words:
+        # 2 bytes a symbol) behind one event, so that the fetch waits for
+        # these copies only and not for work queued after them
+        host = self._copy_to_host({
+            "head": head, "words": res["words"], "states": res["states"],
+            "patch_pos": res["patch_pos"], "patch_val": res["patch_val"],
+            "z_symbols": z_symbols})
+        return {"host": host, "head": head, "cap": n_slice + 1, "K": K,
+                "unroll": int(unroll), "chain": bool(chain),
+                "paired": bool(paired)}
 
     def _compress_device_fetch(self, pend: dict) -> dict:
-        """Phase 2 of compress_device: wait for the device once (the small
-        head: word and patch counts, the flags), then copy what the
-        container needs (the streams' words, states, patches, z symbols)
-        and code z on the host. Raises rans.EscapeError."""
-        res = pend["res"]
+        """Phase 2 of compress_device: wait for the dispatch's copies to
+        the host, then cut the streams' words, the states, patches and z
+        symbols to their counts and code z on the host. Raises
+        rans.EscapeError."""
+        host = pend["host"]
+        if "_ready" in host:
+            host["_ready"].synchronize()
         S = self.cfg.num_slices
-        head = pend["head"].cpu().numpy()
+        head = host["head"].numpy()
         n_words, pcnt = head[:S], head[S:2 * S]
         if head[2 * S]:
             raise rans.EscapeError(
@@ -709,16 +730,16 @@ class DCAECodec:
         if head[2 * S + 1]:
             raise rans.EscapeError(
                 f"escape patch list overflow (> {self.patch_cap}/slice)")
-        words = to_u16(res["words"][:, :max(int(n_words.max()), 1)])
+        words = to_u16(host["words"][:, :max(int(n_words.max()), 1)])
         n_patch = int(pcnt.max())
-        ppos = res["patch_pos"][:, :n_patch].cpu().numpy()
-        pval = res["patch_val"][:, :n_patch].cpu().numpy()
-        z_sym = pend["z_symbols"].cpu().numpy()
+        ppos = host["patch_pos"][:, :n_patch].numpy()
+        pval = host["patch_val"][:, :n_patch].numpy()
+        z_sym = host["z_symbols"].numpy()
         return {
             # emission order reversed is the order the decoder reads
             "istreams": [words[s, :int(n_words[s])][::-1].tobytes()
                          for s in range(S)],
-            "states": to_u32(res["states"]),
+            "states": to_u32(host["states"]),
             "patches": [(ppos[s, :int(pcnt[s])].copy(),
                          pval[s, :int(pcnt[s])].copy()) for s in range(S)],
             # the container's field, as the JAX package's compress_device
@@ -846,8 +867,7 @@ class DCAECodec:
             pval[s, :len(val)] = val
         z_hat = self._decode_z_hat(enc["z_strings"], zh, zw)
         luts = self._slot_luts()
-        dev = self.device
-        up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        up = self._upload
         return (up(words.view(np.int16)), up(n_words),
                 up(states.view(np.int32)), up(ppos), up(pval), luts, unroll,
                 chained, up(z_hat))
@@ -864,179 +884,59 @@ class DCAECodec:
         return {"x_hat": self.model.decode_synthesis(y_hat), "ok": ok}
 
     # ------------------------------------------------------- serving loop --
-
-    def _start_encode_producer(self, batches: List, encode_fn, maxsize: int,
-                               dispatch_fn=None, fetch_fn=None,
-                               dispatch_ahead: int = 1):
-        """The serving loops' producer: a daemon thread encodes the batches
-        into a bounded queue, preparing the next batch's input (its upload)
-        before this batch's fetch blocks. With (dispatch_fn, fetch_fn)
-        instead of encode_fn it dispatches ahead: batch i + D's device work
-        is queued BEFORE batch i's fetch waits, so the fetch and the host
-        coding hide behind the next batches' device time (D =
-        dispatch_ahead, default 1: double buffering; deeper holds D
-        batches of device buffers in flight).
-        Returns (queue, dead_event, thread, err_list); the consumer must
-        `dead.set(); thread.join()` in a finally block, so that a consumer
-        failure never leaves the producer blocked on the full queue, and
-        re-raise err_list[0] if present. A None in the queue marks a
-        producer failure."""
-        q: "queue.Queue" = queue.Queue(maxsize=maxsize)
-        err: List[BaseException] = []
-        dead = threading.Event()   # the consumer died: stop producing
-
-        def put(item) -> bool:
-            while not dead.is_set():
-                try:
-                    q.put(item, timeout=0.2)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def producer():
-            try:
-                depth = max(1, int(dispatch_ahead))
-                nxt = None
-                pend: deque = deque()
-                for i, x in enumerate(batches):
-                    cur = nxt if nxt is not None else self._input(x)
-                    nxt = (self._input(batches[i + 1])
-                           if i + 1 < len(batches) else None)
-                    if dispatch_fn is None:
-                        if not put(encode_fn(cur)):
-                            return
-                        continue
-                    pend.append((dispatch_fn(cur), cur))
-                    if len(pend) > depth and \
-                            not put(fetch_fn(*pend.popleft())):
-                        return
-                while pend:
-                    if not put(fetch_fn(*pend.popleft())):
-                        return
-            except BaseException as e:   # surfaces in the consumer
-                err.append(e)
-                put(None)
-
-        t = threading.Thread(target=producer, daemon=True)
-        t.start()
-        return q, dead, t, err
+    # The JAX package's loops run a producer thread that encodes ahead
+    # while the caller decodes. Here a pair of calls is host-bound (eager
+    # launches under one interpreter lock; the host never waits for the
+    # device in a sequential interleaved pair), and such a producer, on its
+    # own stream, with the fetch behind an event and one or two batches
+    # dispatched ahead, still lost to sequential calls on an H100 (PERF.md
+    # §6): the loops are plain loops over those calls.
 
     def encdec_pipeline(self, batches: Sequence, decode_interleave: int = 2,
                         queue_depth: int = 3) -> List[dict]:
-        """Serving loop of the classic format: a producer thread runs
-        compress() batch after batch (its host rANS releases the
-        interpreter lock) while this thread decodes, decode_interleave
-        encoded batches at a time through decompress_many. queue_depth
-        bounds the encodes nobody has decoded yet. Returns per-batch
-        {"strings", "shape", "x_hat"} in order; each equals compress() /
-        decompress() of that batch alone."""
+        """Serving loop of the classic format: compress() then decompress()
+        of each batch, in order. Returns per-batch {"strings", "shape",
+        "x_hat"}. decode_interleave and queue_depth, the JAX loop's bounds
+        on its producer, bound nothing in a plain loop."""
         self._need("encdec_pipeline", *HALF_TRANSFORMS)
-        batches = list(batches)
-        k = max(1, int(decode_interleave))
-        q, dead, t, err = self._start_encode_producer(
-            batches, self.compress, maxsize=max(k, queue_depth))
         results: List[dict] = []
-
-        def flush(group: List[dict]) -> None:
-            decs = self.decompress_many(
-                [(e["strings"], e["shape"]) for e in group],
-                interleave=len(group))
-            for e, d in zip(group, decs):
-                results.append({"strings": e["strings"], "shape": e["shape"],
-                                "x_hat": d["x_hat"]})
-
-        group: List[dict] = []
-        try:
-            for _ in batches:
-                enc = q.get()
-                if enc is None:
-                    group = []
-                    break
-                group.append(enc)
-                if len(group) >= k:
-                    flush(group)
-                    group = []
-            if group:
-                flush(group)
-        finally:
-            dead.set()
-            t.join()
-        if err:
-            raise err[0]
+        for x in batches:
+            enc = self.compress(x)
+            results.append({
+                "strings": enc["strings"], "shape": enc["shape"],
+                "x_hat": self.decompress(enc["strings"],
+                                         enc["shape"])["x_hat"]})
         return results
 
     def encdec_pipeline_interleaved(self, batches: Sequence,
                                     inflight: int = 3,
                                     dispatch_ahead: int = 1, **encode_kw
                                     ) -> List[dict]:
-        """Serving loop of the device-coding profile: a producer thread
-        encodes (compress_device's two phases, dispatching ahead), while
-        the consumer merely DISPATCHES each batch's decode: the device's
-        queue is the pipeline, so the encode of batch i + 1 overlaps the
-        decode of batch i. `inflight` bounds the decodes nobody has waited
-        for (device-memory backpressure); encode_kw goes to
-        _compress_device_dispatch.
-
-        A batch whose symbols do not fit the profile (rans.EscapeError:
-        untrained weights, extreme inputs) is coded by the classic codec
-        instead and tagged: every batch gets a result, in order.
-        Returns per-batch {"x_hat", "ok", "shape", "profile"}, profile
-        "interleaved" or "classic"."""
+        """Serving loop of the device-coding profile: compress_device
+        (encode_kw goes to its dispatch phase) then decompress_interleaved
+        of each batch, in order. A batch whose symbols do not fit the
+        profile (rans.EscapeError: untrained weights, extreme inputs) is
+        coded by the classic codec instead and tagged: every batch gets a
+        result, in order. Returns per-batch {"x_hat", "ok", "shape",
+        "profile"}, profile "interleaved" or "classic". inflight and
+        dispatch_ahead, the JAX loop's bounds on its producer, bound
+        nothing in a plain loop: the next batch's fetch waits for this
+        batch's decode, queued before it on the stream."""
         self._need("encdec_pipeline_interleaved", *HALF_TRANSFORMS)
-        batches = list(batches)
-
-        def dispatch(x):     # never waits for the device: cannot escape
-            return self._compress_device_dispatch(x, **encode_kw)
-
-        def fetch(d, x):
-            try:
-                return self._compress_device_fetch(d)
-            except rans.EscapeError:
-                return {"_classic": self.compress(x)}
-
-        q, dead, t, err = self._start_encode_producer(
-            batches, None, maxsize=max(1, inflight), dispatch_fn=dispatch,
-            fetch_fn=fetch, dispatch_ahead=dispatch_ahead)
         results: List[dict] = []
-        pending: deque = deque()
-        on_card = self.device.type == "cuda"
-
-        def drain(item):
-            d, done = item
-            if done is not None:
-                done.synchronize()
-            results.append(d)
-
-        try:
-            for _ in batches:
-                enc = q.get()
-                if enc is None:
-                    break
-                if "_classic" in enc:
-                    # the classic decode waits for the device at every
-                    # slice: this batch alone loses the overlap
-                    c = enc["_classic"]
-                    d = self.decompress(c["strings"], c["shape"])
-                    d = {"x_hat": d["x_hat"], "ok": True,
-                         "shape": c["shape"], "profile": "classic"}
-                else:
-                    d = {**self.decompress_interleaved(enc),
-                         "shape": enc["shape"], "profile": "interleaved"}
-                done = None
-                if on_card:
-                    done = torch.cuda.Event()
-                    done.record()
-                pending.append((d, done))
-                if len(pending) > inflight:
-                    drain(pending.popleft())
-            while pending:
-                drain(pending.popleft())
-        finally:
-            dead.set()
-            t.join()
-        if err:
-            raise err[0]
+        for x in batches:
+            x = self._input(x)
+            try:
+                enc = self._compress_device_fetch(
+                    self._compress_device_dispatch(x, **encode_kw))
+            except rans.EscapeError:
+                c = self.compress(x)
+                d = self.decompress(c["strings"], c["shape"])
+                results.append({"x_hat": d["x_hat"], "ok": True,
+                                "shape": c["shape"], "profile": "classic"})
+                continue
+            results.append({**self.decompress_interleaved(enc),
+                            "shape": enc["shape"], "profile": "interleaved"})
         return results
 
     # ----------------------------------------------------- certification --

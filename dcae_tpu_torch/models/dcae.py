@@ -36,7 +36,7 @@ from torch import nn
 from dcae_tpu_torch.config import DCAEConfig
 from dcae_tpu_torch.entropy import gaussian
 from dcae_tpu_torch.entropy.bottleneck import EntropyBottleneck
-from dcae_tpu_torch.entropy.ops import ste_round
+from dcae_tpu_torch.entropy.ops import draw_noise, ste_round
 from dcae_tpu_torch.models.transforms import (GAnalysis, GSynthesis,
                                               HyperAnalysis, HyperSynthesis,
                                               SliceNet)
@@ -166,8 +166,7 @@ class DCAE(nn.Module):
         for none) and unless cfg.drift_noise > 0."""
         if generator is None or self.cfg.drift_noise <= 0:
             return x
-        noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
-                           device=x.device) - 0.5
+        noise = draw_noise(x.shape, generator, x.dtype, x.device) - 0.5
         return x + noise * (2 * self.cfg.drift_noise)
 
     def _slice_context(self, i: int, latent_scales, latent_means,

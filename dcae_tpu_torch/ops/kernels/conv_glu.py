@@ -28,7 +28,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from dcae_tpu_torch.ops.kernels import _build
+from dcae_tpu_torch.ops.kernels import _build, note_launch
 from dcae_tpu_torch.ops.kernels._grad import recompute_backward, wants_grad
 
 
@@ -189,6 +189,12 @@ class ConvGluFunction(torch.autograd.Function):
 def _launch_counted(*operands, apply_ln: bool) -> torch.Tensor:
     out = launch(*operands, apply_ln=apply_ln)
     conv_glu.launches += 1
+    x, w1 = operands[0], operands[3]
+    B, H, W, C = x.shape
+    h = w1.shape[0] // 2
+    # fc1 4 C h, fc2 2 C h, the 3x3 depthwise convolution 18 h a token
+    note_launch("conv_glu", B * H * W * (6 * C * h + 18 * h), x, out,
+                *operands[1 if apply_ln else 3:])
     return out
 
 

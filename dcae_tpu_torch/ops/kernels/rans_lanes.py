@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from dcae_tpu_torch.ops.kernels import _build
+from dcae_tpu_torch.ops.kernels import _build, note_launch
 
 SLOTS = 1 << 16
 RANS_L16 = 1 << 16
@@ -221,6 +221,9 @@ def rans_lanes_decode(words, n_words, states, indexes, lut_a, lut_b,
                            int(paired), int(check_base), stream)
     _build.check(rc, what)
     rans_lanes_decode.launches += 1
+    # the streams, states and symbols (a lookup touches a sliver of the
+    # tables)
+    note_launch(what, 0, words, n_words, states, indexes, syms, st_out)
     return syms, ok != 0, st_out
 
 
@@ -321,6 +324,7 @@ def rans_lanes_encode(pos, idx, in_range, enc_sf, stride: int, lanes: int,
                            enc_sf.numel() // stride, cap, stream)
     _build.check(rc, what)
     rans_lanes_encode.launches += 1
+    note_launch(what, 0, pos, idx, in_range, words, n_words, st_out)
     return words, n_words, st_out, esc != 0
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from dcae_tpu_torch.ops.kernels import note_launch
 from dcae_tpu_torch.ops.kernels._grad import recompute_backward, wants_grad
 from dcae_tpu_torch.ops.kernels.wmsa_block import (check_windows, launch,
                                                    operand_rounding,
@@ -68,6 +69,10 @@ class WmsaAttentionFunction(torch.autograd.Function):
 def _launch_counted(x, params, heads: int, shifted: bool) -> torch.Tensor:
     out = launch("wmsa_attention", x, params, heads=heads, shifted=shifted)
     wmsa_attention.launches += 1
+    B, H, W, C = x.shape
+    # qkv 6 C^2, proj 2 C^2, attention 4 * 64 * C a token
+    note_launch("wmsa_attention", B * H * W * (8 * C * C + 256 * C), x, out,
+                *params)
     return out
 
 

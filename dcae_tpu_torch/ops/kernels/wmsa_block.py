@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dcae_tpu_torch.ops.kernels import _build
+from dcae_tpu_torch.ops.kernels import _build, note_launch
 from dcae_tpu_torch.ops.kernels._grad import recompute_backward, wants_grad
 
 WINDOW = 8
@@ -219,6 +219,10 @@ class WmsaBlockFunction(torch.autograd.Function):
 def _launch_counted(x, params, heads: int, shifted: bool) -> torch.Tensor:
     out = launch("wmsa_block", x, params, heads=heads, shifted=shifted)
     wmsa_block.launches += 1
+    B, H, W, C = x.shape
+    # qkv 6 C^2, proj 2 C^2, attention 4 * 64 * C a token
+    note_launch("wmsa_block", B * H * W * (8 * C * C + 256 * C), x, out,
+                *params)
     return out
 
 

@@ -7,9 +7,12 @@ Example (the reference recipe):
         --lr_epoch 46
 
 Runs on the CUDA device; `--device cpu --tiny` is the smoke run on a CPU.
+Data-parallel over several cards (--batch-size is the global batch):
+    torchrun --nproc-per-node 4 -m dcae_tpu_torch.tools.train -d $DATASET ...
 """
 
 import argparse
+import os
 
 from dcae_tpu_torch.train.loop import TrainOptions, run_training
 
@@ -83,7 +86,11 @@ def main(argv=None):
     if a.tiny:
         from dcae_tpu_torch.config import DCAEConfig
         cfg = DCAEConfig.tiny(drift_noise=a.drift_noise)
-    run_training(opts, cfg=cfg, device=a.device)
+    device = a.device
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:      # under torchrun
+        from dcae_tpu_torch.parallel import multihost
+        device = multihost.initialize(device=device)
+    run_training(opts, cfg=cfg, device=device)
 
 
 if __name__ == "__main__":

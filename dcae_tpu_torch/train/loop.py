@@ -1,4 +1,8 @@
-"""The training loop: the canonical RD recipe on one device.
+"""The training loop: the canonical RD recipe on one device, or
+data-parallel over every process of a torch.distributed group (torchrun):
+each rank reads the same global batches (the primary rank's order) and
+trains on its rows (parallel/mesh.py); only the primary rank logs and
+checkpoints.
 
 The recipe: dual Adam, clip 1.0, MultiStepLR x0.1 at lr_epochs, batch 8,
 256^2 patches, checkpoints latest / every-5 / best, a resume restores the
@@ -21,6 +25,8 @@ from dcae_tpu_torch.config import DCAEConfig
 from dcae_tpu_torch.data.datasets import ImageFolder
 from dcae_tpu_torch.models.codec import resolve_device
 from dcae_tpu_torch.models.dcae import DCAE
+from dcae_tpu_torch.parallel import mesh as pmesh
+from dcae_tpu_torch.parallel.multihost import is_primary
 from dcae_tpu_torch.train.state import (ExponentialTargetScheduler,
                                         TrainState, create_train_state,
                                         make_optimizer, multistep_lr,
@@ -122,9 +128,29 @@ def validate_real(cfg: DCAEConfig, state: TrainState, test_ds,
     return {k: m.avg for k, m in meters.items()}
 
 
+class _NoLogger:
+    """The logger of a rank that does not log."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
                  device=None) -> TrainState:
-    device = resolve_device(device)
+    """Under a process group (parallel/multihost.initialize) the dp axis
+    spans its processes, one device each; opts.batch_size is the global
+    batch and must split into equal rank shards."""
+    # this process's device: its own card under a process group
+    mesh = pmesh.make_mesh(device=resolve_device(device))
+    device = mesh.device
+    primary = is_primary()
+    say = print if primary else (lambda *a, **k: None)
+    if opts.batch_size % mesh.dp:
+        raise ValueError(f"batch size {opts.batch_size} does not split "
+                         f"over dp = {mesh.dp}")
     # full-f32 products, as the codec that will run the trained model
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -141,8 +167,8 @@ def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
     model.reset_parameters(torch.Generator().manual_seed(opts.seed))
     model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: {n_params / 1e6:.1f}M params, "
-          f"{steps_per_epoch} steps/epoch, on {device}")
+    say(f"model: {n_params / 1e6:.1f}M params, "
+        f"{steps_per_epoch} steps/epoch, on {device}, dp {mesh.dp}")
 
     schedule = multistep_lr(
         opts.learning_rate, [m * steps_per_epoch for m in opts.lr_epochs])
@@ -159,8 +185,8 @@ def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
     if opts.checkpoint:
         state, last_epoch, best = load_checkpoint(opts.checkpoint, state)
         policy.best_loss = best
-        print(f"resumed from {opts.checkpoint} @ epoch {last_epoch} "
-              f"(loss {best:.4f})")
+        say(f"resumed from {opts.checkpoint} @ epoch {last_epoch} "
+            f"(loss {best:.4f})")
         if not opts.continue_train:
             # architecture-migration resume: keep the parameters, rebuild
             # the optimizer state
@@ -168,11 +194,14 @@ def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
                                        step=last_epoch * steps_per_epoch)
 
     logger = MetricLogger(opts.save_path, use_wandb=opts.use_wandb,
-                          wandb_config=dataclasses.asdict(opts))
-    train_step = make_train_step(model, tx, opts.lmbda, opts.loss_type,
-                                 precision_reg=opts.precision_reg,
-                                 precision_noise=opts.precision_noise)
-    eval_step = make_eval_step(model, opts.lmbda, opts.loss_type)
+                          wandb_config=dataclasses.asdict(opts)) \
+        if primary else _NoLogger()
+    train_step = pmesh.shard_train_step(
+        make_train_step(model, tx, opts.lmbda, opts.loss_type,
+                        precision_reg=opts.precision_reg,
+                        precision_noise=opts.precision_noise), mesh)
+    eval_full = make_eval_step(model, opts.lmbda, opts.loss_type)
+    eval_step = pmesh.shard_eval_step(eval_full, mesh)
 
     def to_device(batch) -> torch.Tensor:
         return torch.from_numpy(batch).to(device)
@@ -180,17 +209,20 @@ def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
     aux_sched = None  # built from the first epoch's measured aux loss
     aux_sched_on = resolve_aux_scheduler(opts, cfg)
     if opts.aux_scheduler is None:
-        print(f"aux_scheduler auto -> {'on' if aux_sched_on else 'off'} "
-              f"(N={cfg.N})")
+        say(f"aux_scheduler auto -> {'on' if aux_sched_on else 'off'} "
+            f"(N={cfg.N})")
 
     try:
         for epoch in range(last_epoch, opts.epochs):
             t0 = time.time()
             meters = {k: AverageMeter()
                       for k in ("loss", "bpp_loss", "aux_loss")}
-            for i, batch in enumerate(train_ds.batches(opts.batch_size,
-                                                       epoch)):
-                state, metrics = train_step(state, to_device(batch))
+            # every rank reads the primary's order of the global batches
+            order = pmesh.broadcast(train_ds.epoch_seed(epoch), mesh)
+            for i, batch in enumerate(train_ds.batches(
+                    opts.batch_size, epoch, order_seed=order)):
+                state, metrics = train_step(
+                    state, to_device(pmesh.shard_rows(batch, mesh)))
                 if i % opts.log_every == 0:
                     metrics = {k: float(v) for k, v in metrics.items()}
                     logger.log(epoch * steps_per_epoch + i, metrics)
@@ -199,22 +231,28 @@ def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
                     dist_key = next(k for k in metrics if k.endswith("_loss")
                                     and k not in ("bpp_loss", "aux_loss",
                                                   "precision_loss"))
-                    print(f"epoch {epoch} [{i}/{steps_per_epoch}] "
-                          f"loss {metrics['loss']:.4f} | "
-                          f"{dist_key} {metrics[dist_key]:.5f} | "
-                          f"bpp {metrics['bpp_loss']:.3f} | "
-                          f"aux {metrics['aux_loss']:.1f}")
+                    say(f"epoch {epoch} [{i}/{steps_per_epoch}] "
+                        f"loss {metrics['loss']:.4f} | "
+                        f"{dist_key} {metrics[dist_key]:.5f} | "
+                        f"bpp {metrics['bpp_loss']:.3f} | "
+                        f"aux {metrics['aux_loss']:.1f}")
 
             test_meter = AverageMeter()
             for batch in test_ds.batches(opts.test_batch_size,
                                          drop_last=False):
-                m = eval_step(to_device(batch))
+                if batch.shape[0] % mesh.dp == 0:
+                    m = eval_step(to_device(pmesh.shard_rows(batch, mesh)))
+                elif primary:
+                    # a leftover batch: whole, on one rank, counted once
+                    m = eval_full(to_device(batch))
+                else:
+                    continue
                 test_meter.update(float(m["loss"]), batch.shape[0])
             test_loss = test_meter.avg
             logger.log((epoch + 1) * steps_per_epoch, {"loss": test_loss},
                        namespace="val")
-            print(f"epoch {epoch}: test loss {test_loss:.4f} "
-                  f"({time.time() - t0:.0f}s)")
+            say(f"epoch {epoch}: test loss {test_loss:.4f} "
+                f"({time.time() - t0:.0f}s)")
 
             if aux_sched_on and meters["aux_loss"].count:
                 aux_now = meters["aux_loss"].avg
@@ -229,19 +267,19 @@ def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
                 logger.log((epoch + 1) * steps_per_epoch,
                            {"aux_lr": new_lr, "aux_mult": mult},
                            namespace="aux_sched")
-                print(f"epoch {epoch}: aux_lr -> {new_lr:.2e} (x{mult:.0f}, "
-                      f"aux {aux_now:.1f})")
+                say(f"epoch {epoch}: aux_lr -> {new_lr:.2e} (x{mult:.0f}, "
+                    f"aux {aux_now:.1f})")
 
-            if (opts.val_real_every > 0
+            if (primary and opts.val_real_every > 0
                     and (epoch + 1) % opts.val_real_every == 0):
                 vr = validate_real(cfg, state, test_ds, opts.val_real_images)
                 if vr:
                     logger.log((epoch + 1) * steps_per_epoch, vr,
                                namespace="val_real")
-                    print(f"epoch {epoch}: val_real bpp {vr['bpp']:.4f} "
-                          f"psnr {vr['psnr']:.2f} dB")
+                    say(f"epoch {epoch}: val_real bpp {vr['bpp']:.4f} "
+                        f"psnr {vr['psnr']:.2f} dB")
 
-            if opts.save:
+            if opts.save and primary:
                 policy.save(state, epoch + 1, test_loss)
     finally:
         logger.close()

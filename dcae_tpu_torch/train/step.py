@@ -6,6 +6,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from dcae_tpu_torch.entropy.ops import draw_noise
 from dcae_tpu_torch.models.dcae import DCAE
 from dcae_tpu_torch.train.losses import rate_distortion_loss
 from dcae_tpu_torch.train.state import (OptimizerSpec, TrainState,
@@ -30,9 +31,8 @@ def make_loss_fn(model: DCAE, lmbda: float, metric: str = "mse",
         if precision_reg > 0:
             y_hat = out["para"]["y_hat"]
             z_hat = out["para"]["z_hat"]
-            noise = torch.randn(y_hat.shape, generator=generator,
-                                dtype=y_hat.dtype, device=y_hat.device) \
-                * precision_noise
+            noise = draw_noise(y_hat.shape, generator, y_hat.dtype,
+                               y_hat.device, normal=True) * precision_noise
             x_a = model.decode_from_quantized(y_hat, z_hat)
             x_b = model.decode_from_quantized(y_hat + noise, z_hat)
             rd["precision_loss"] = torch.mean((x_a - x_b) ** 2)

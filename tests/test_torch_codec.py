@@ -133,7 +133,10 @@ def test_port_imports_no_jax():
         "for want in ('train.loop', 'train.step', 'train.state',\n"
         "             'train.losses', 'data.datasets', 'utils.metrics',\n"
         "             'utils.checkpoint', 'utils.logging', 'utils.convert',\n"
-        "             'tools.train', 'eval_lib'):\n"
+        "             'tools.train', 'eval_lib', 'runtime.service',\n"
+        "             'parallel.mesh', 'parallel.multihost',\n"
+        "             'utils.profiling', 'utils.debug', 'tools.server',\n"
+        "             'tools.client', 'tools.eval_sharded'):\n"
         "    assert 'dcae_tpu_torch.' + want in names, want\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

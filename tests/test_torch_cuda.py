@@ -736,3 +736,179 @@ def test_split_step_on_card_equals_cpu(card):
         ops.noise_quantize = real
     res = cs.compare_steps(ref, got, lr)
     assert cs.tiny_step_passes(res), res
+
+
+@pytest.mark.cuda
+def test_serving_loops_on_card_equal_sequential_calls(card):
+    """Both serving loops on the card (the tiny window-8 model, f32) give
+    each batch what the sequential calls give it, bitwise, in order."""
+    from dcae_tpu_torch.entropy.rans import EscapeError
+    from dcae_tpu_torch.models.codec import DCAECodec
+
+    cfg, sd = _tiny_w8()
+    codec = DCAECodec(cfg, params=sd, device="cuda")
+    codec.update()
+    rng = np.random.default_rng(5)
+    batches = [np.clip(rng.uniform(0, 1, (n, 128, 128, 3)) * 0.3 + 0.35,
+                       0, 1).astype(np.float32) for n in (2, 1, 2)]
+    codec.patch_cap = 2 * 128 * 128          # no overflow at random weights
+    for got, x in zip(codec.encdec_pipeline_interleaved(batches), batches):
+        try:
+            want = codec.decompress_interleaved(codec.compress_device(x))
+            assert got["profile"] == "interleaved" and bool(got["ok"])
+        except EscapeError:
+            enc = codec.compress(x)
+            want = codec.decompress(enc["strings"], enc["shape"])
+            assert got["profile"] == "classic"
+        assert torch.equal(got["x_hat"], want["x_hat"])
+    for got, x in zip(codec.encdec_pipeline(batches), batches):
+        enc = codec.compress(x)
+        assert got["strings"] == enc["strings"]
+        assert torch.equal(got["x_hat"], codec.decompress(
+            enc["strings"], enc["shape"])["x_hat"])
+    codec.close()
+
+
+@pytest.mark.cuda
+def test_server_decodes_on_arrival_on_card(card, tmp_path):
+    """tools/server.py's decoder on a BitstreamServer, its codec on the
+    card: a classic .bin and a DTI2 payload each decode to the direct
+    decode of the same bytes, bitwise."""
+    import threading
+
+    from dcae_tpu_torch.models.codec import DCAECodec
+    from dcae_tpu_torch.runtime import container
+    from dcae_tpu_torch.runtime.service import BitstreamServer, send_bytes
+    from dcae_tpu_torch.tools.server import payload_decoder
+
+    cfg, sd = _tiny_w8()
+    codec = DCAECodec(cfg, params=sd, device="cuda")
+    codec.update()
+    codec.patch_cap = 128 * 128
+    x = np.clip(np.random.default_rng(6).uniform(0, 1, (1, 128, 128, 3))
+                * 0.3 + 0.35, 0, 1).astype(np.float32)
+    enc = codec.compress(x)
+    payloads = {"c.bin": container.pack_bin(enc["strings"], (128, 128)),
+                "d.bin": container.pack_bin_interleaved(
+                    codec.compress_device(x), (128, 128))}
+    served, done = {}, threading.Event()
+
+    def on_decoded(name, x_hat):
+        served[name] = x_hat
+        done.set()
+
+    srv = BitstreamServer(0, str(tmp_path),
+                          payload_decoder(codec, str(tmp_path), on_decoded))
+    srv.start(background=True)
+    try:
+        for name, blob in payloads.items():
+            done.clear()
+            send_bytes(name, blob, "127.0.0.1", srv.bound_port)
+            assert done.wait(60), name
+    finally:
+        srv.stop()
+    c = container.unpack_bin(payloads["c.bin"], cfg.pad_multiple,
+                             cfg.z_downsample)
+    assert torch.equal(served["c.bin"],
+                       codec.decompress(c[0], c[1])["x_hat"])
+    d, _, _ = container.unpack_bin_interleaved(
+        payloads["d.bin"], cfg.pad_multiple, cfg.z_downsample)
+    assert torch.equal(served["d.bin"],
+                       codec.decompress_interleaved(d)["x_hat"])
+    codec.close()
+
+
+@pytest.mark.cuda
+def test_dp_over_cards_equals_one_card(card, tmp_path):
+    """Every card of the machine a rank (NCCL, tests/torch_dp_worker.py
+    in its card mode), the tiny window-8 model in f32, 2 rows a rank, two
+    steps: every rank bitwise alike, and equal to the same shards' steps
+    computed one after another on one card (torch_dp_common.
+    shard_mean_steps; the all-reduce sums in another order): step 1's
+    gradients within 1e-5 of the largest gradient, the parameters 99%
+    within 1e-3 lr and all within the tiny card step's 2.1 lr a step.
+    Against the whole batch on one card the difference is printed, not
+    held: cuDNN picks its algorithms by the batch's shape (on four H100s
+    4.3e-4 of one gradient tensor's largest, 0.47 lr in the parameters);
+    on the CPU the whole batch agrees to 1e-6 of the largest parameter
+    (tests/test_torch_parallel.py). Needs two cards at least."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from dcae_tpu_torch.ops.kernels import _build
+    from tests.torch_dp_common import (TRAIN_KW, card_config, global_batch,
+                                       shard_mean_steps, state_and_step)
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards")
+    _build.build_kernels()                # once, before the ranks start
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_dp_worker.py"),
+         str(port), str(n), str(r), str(tmp_path), "cuda"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("the dp ranks timed out:\n" + "\n".join(
+            p.communicate()[0] for p in procs))
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    got = [np.load(str(tmp_path / f"w{n}r{r}_step.npz")) for r in range(n)]
+    got_grads = np.load(str(tmp_path / f"w{n}r0_grad.npz"))
+    for k in got[0].files:
+        assert all(np.array_equal(g[k], got[0][k]) for g in got), k
+
+    # full-f32 products, as in the ranks and the trainer
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = torch.from_numpy(global_batch(2 * n, 128)).to("cuda:0")
+    try:
+        model, grads = shard_mean_steps(card_config(), "cuda:0", batch, n,
+                                        **TRAIN_KW)
+        whole, state, step = state_and_step(card_config(), "cuda:0",
+                                            **TRAIN_KW)
+        state, _ = step(state, batch)
+        whole_grads = {k: p.grad.cpu().numpy()
+                       for k, p in whole.named_parameters()}
+        state, _ = step(state, batch)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
+
+    def compare(ref_model, ref_grads):
+        """(largest gradient difference over the largest gradient, the
+        parameters' largest and 99th-percentile difference in lr)."""
+        g_scale = max(float(np.abs(v).max()) for k, v in ref_grads.items()
+                      if not k.endswith(".k.bias"))
+        g = max(float(np.abs(got_grads[k] - v).max())
+                for k, v in ref_grads.items() if not k.endswith(".k.bias"))
+        d = np.concatenate([
+            np.abs(got[0][k] - v.detach().cpu().numpy()).ravel()
+            for k, v in ref_model.state_dict().items()])
+        return g / g_scale, float(d.max()) / lr, float(
+            np.quantile(d, 0.99)) / lr
+
+    lr = 1e-4
+    shard = compare(model, grads)
+    wb = compare(whole, whole_grads)
+    print(f"dp over {n} cards against the shards on one card: gradients "
+          f"{shard[0]:.3e} of the largest, parameters {shard[1]:.3e} lr at "
+          f"most, 99% within {shard[2]:.3e} lr; against the whole batch: "
+          f"{wb[0]:.3e}, {wb[1]:.3e}, {wb[2]:.3e}")
+    # the key biases (true gradient 0, tests/test_torch_train_step.py) are
+    # left out of the gradients and held with the parameters: Adam moves
+    # a near-zero gradient's rounding by up to lr a step
+    assert shard[0] <= 1e-5
+    assert shard[1] <= 2 * 2.1 and shard[2] <= 1e-3
