@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase train
     python3 chip_smoke.py --phase split
     python3 chip_smoke.py --phase serve
+    python3 chip_smoke.py --phase sp
 
 Phases, in order:
   build      nvcc builds every kernel of csrc/ from this checkout (one
@@ -131,6 +132,37 @@ Phases, in order:
                         beside the train phase's step, tools/eval_sharded
                         on 4 PNGs.
              It prints one JSON line of its own ({"serve": ...}).
+  sp         the spatial mesh axis, full-width f32 DCAEConfig() (the train
+             phase's flags), seeded weights:
+             halo check wmsa_block / wmsa_attention (W, SW) and conv_glu on
+                        the first, an interior and the last stage-3 band
+                        of the sp = 2 step with their halos, cropped,
+                        against the whole tensor (expected bitwise; TOL);
+             probe      two processes of this script on the one card
+                        over gloo: which operations take card tensors
+                        (all-reduce and all-gather must: the host-staged
+                        transport passes them to gloo as they are; the
+                        point to point it stages is printed);
+             ranks      two processes of this script on the one card
+                        (gloo, host-staged transport: NCCL refuses two
+                        ranks on one card): one RD step
+                        of 8 x 256x256 at dp = 1, sp = 2 against the
+                        one-card make_train_step on the same batch and
+                        state (gradients within 1e-5 of the largest, 99%
+                        of the parameters within 1e-3 lr, metrics and
+                        parameters bitwise alike on the ranks), 30
+                        wmsa_block / 29 conv_glu launches a rank a step,
+                        peak memory and step ms a rank beside one card's
+                        (the ranks share the card: no scaling is read);
+                        shard_eval_step on 2 x 768x512 in bf16 transforms
+                        against one card (the bits and the metrics at TOL
+                        bf16; y and g_s within SP_BF16_VS_F32 times one
+                        card's distance from the f32 model; y no further
+                        from one card's at the band edge than elsewhere;
+                        x_hat and the likelihoods printed); the attention-only
+                        configuration's forward (30 wmsa_attention a rank,
+                        x_hat at TOL f32).
+             It prints one JSON line of its own ({"sp": ...}).
   profile    (only with --phase profile) device time of one slice run by
              kernel, from torch.profiler: staged, shipped-index and
              interleaved pairs; then of one full-width training step.
@@ -145,6 +177,7 @@ failed check. The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -2926,16 +2959,513 @@ def serve_phase(joint_train: dict | None = None) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- sp --
+
+SP = 2
+LR = 1e-4
+# the sp step against the one-card step (the dp card test's bars): every
+# gradient within SP_GRAD_TOL of the largest gradient, 99% of the
+# parameters within SP_PARAM_LR learning rates
+SP_GRAD_TOL, SP_PARAM_LR = 1e-5, 1e-3
+# the sp = 2 bf16 eval's y and g_s: within this many times one card's bf16
+# distance from the f32 model (one card 1.47e-2 and 1.33e-2 of the largest,
+# sp 1.36e-2 and 1.41e-2, NVIDIA H100 80GB HBM3, 700 W)
+SP_BF16_VS_F32 = 1.25
+SP_TIMEOUT_S = 300
+
+
+def halo_check(gen) -> dict:
+    """wmsa_block, wmsa_attention (W and SW) and conv_glu, f32 and bf16,
+    on the first, an interior and the last band of a tensor of three
+    sp = 2 stage-3 bands of the training step (16 rows each: 8 x 48 x 32 x
+    256), each band extended by one window of rows on each side that has
+    a neighbour (as run_bands gives them), cropped, against the same
+    kernel's rows of the whole tensor. A window's arithmetic does not see
+    its neighbours, so they should agree bitwise; held at TOL."""
+    import torch
+    from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu
+    from dcae_tpu_torch.ops.kernels.wmsa_attention import wmsa_attention
+    from dcae_tpu_torch.ops.kernels.wmsa_block import wmsa_block
+
+    H, W, C, heads, n, w = 48, 32, 256, 8, 16, 8
+    cases = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        x, p = wmsa_inputs(H, W, C, heads, dt, gen, TRAIN_BATCH)
+        xg, pg = conv_glu_inputs(H, W, C, 2 * C, dt, gen, TRAIN_BATCH)
+        cases[f"conv_glu {dtype}"] = (dtype, xg, lambda t, pg=pg: conv_glu(
+            t, *pg, apply_ln=True))
+        for s in (False, True):
+            tag = f"{'SW' if s else 'W'} {dtype}"
+            cases[f"wmsa_block {tag}"] = (dtype, x, lambda t, s=s, p=p:
+                                          wmsa_block(t, *p, heads=heads,
+                                                     shifted=s))
+            cases[f"wmsa_attention {tag}"] = (
+                dtype, x, lambda t, s=s, p=p: wmsa_attention(
+                    t, *p[3:], heads=heads, shifted=s))
+    out = {}
+    with torch.no_grad():
+        for name, (dtype, t, fn) in cases.items():
+            whole = fn(t)
+            worst = 0.0
+            for r0 in range(0, H, n):
+                top = w if r0 else 0
+                band = fn(t[:, r0 - top:min(H, r0 + n + w)].contiguous())
+                worst = max(worst, float(
+                    (band[:, top:top + n] - whole[:, r0:r0 + n]).abs().max()))
+            out[name] = {"max_abs_diff": worst,
+                         "rel": worst / float(whole.abs().max()),
+                         "dtype": dtype}
+    for name, r in out.items():
+        print(f"sp halo check: {name} on first / interior / last bands "
+              f"with their halos, cropped, against the whole: max |diff| "
+              f"{r['max_abs_diff']:.3e} ({r['rel']:.3e} of the largest)",
+              flush=True)
+    bad = {k: r for k, r in out.items() if not r["rel"] <= TOL[r["dtype"]]}
+    if bad:
+        fail(f"sp halo check: {bad}")
+    return out
+
+
+def halo_rows(cfg, H: int) -> dict:
+    """The Swin blocks' rows a rank of an sp = 2 step computes at each
+    stage of g_a (g_s mirrors it) for an image height H: its own band and
+    the one window of halo rows on its side that has a neighbour."""
+    w = cfg.window_size
+    out = {}
+    for i in range(len(cfg.feature_dim)):
+        own = H // 2 ** (i + 1) // SP
+        out[f"stage{i + 1}"] = {"own_rows": own, "halo_rows": w,
+                                "halo_share": w / own}
+    return out
+
+
+def gloo_probe_worker(rank: int, port: int) -> None:
+    """One of the two ranks of the gloo probe, on card 0: each operation
+    that the transports use, on card tensors, its values checked. Prints
+    a line `probe <operation> <outcome>` an operation; point to point goes
+    last, since a refusal there may leave the group unusable."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=30))
+    dev = torch.device("cuda", 0)
+    t = torch.full((4,), float(rank + 1), device=dev)
+
+    def all_reduce():
+        u = t.clone()
+        dist.all_reduce(u)
+        return u, torch.full_like(t, 3.0)
+
+    def broadcast():
+        u = t.clone()
+        dist.broadcast(u, 0)
+        return u, torch.full_like(t, 1.0)
+
+    def all_gather():
+        out = [torch.empty_like(t) for _ in range(2)]
+        dist.all_gather(out, t)
+        return torch.cat(out), torch.cat([torch.full_like(t, 1.0),
+                                          torch.full_like(t, 2.0)])
+
+    def send_recv():
+        u = torch.empty_like(t)
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, t, 1 - rank),
+                dist.P2POp(dist.irecv, u, 1 - rank)]):
+            work.wait()
+        return u, torch.full_like(t, float(2 - rank))
+
+    try:
+        for name, fn in (("all_reduce", all_reduce),
+                         ("broadcast", broadcast),
+                         ("all_gather", all_gather),
+                         ("send_recv", send_recv)):
+            try:
+                got, want = fn()
+                torch.cuda.synchronize()
+                outcome = ("takes cuda tensors" if torch.equal(got, want)
+                           else f"wrong values: {got.tolist()}")
+            except RuntimeError as e:
+                outcome = "refuses: " + str(e).strip().splitlines()[0][:160]
+            print(f"probe {name} {outcome}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def forward_bytes(model, state, batch, step_context) -> int:
+    """Device bytes the training forward holds for its backward (allocated
+    after the loss, less before), inside step_context; then the backward,
+    its gradients dropped."""
+    import torch
+    from dcae_tpu_torch.train.step import make_loss_fn
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with step_context():
+        loss, _ = make_loss_fn(model, LMBDA)(batch, state.generator)
+        held = torch.cuda.memory_allocated() - before
+        loss.backward()
+    for p in model.parameters():
+        p.grad = None
+    return held
+
+
+def _param_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sp_body(rank: int, tmp: str) -> None:
+    import torch
+    import torch.distributed as dist
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.parallel import mesh as pmesh, spatial
+    from dcae_tpu_torch.train.state import create_train_state, make_optimizer
+    from dcae_tpu_torch.train.step import make_eval_step, make_train_step
+
+    dev = torch.device("cuda", 0)
+    mesh = pmesh.make_mesh(sp=SP, device=dev)
+    if mesh.shape != {"dp": 1, "sp": SP} or mesh.sp_rank != rank:
+        fail(f"sp: mesh {mesh.shape}, sp_rank {mesh.sp_rank}")
+    res = {"mesh": mesh.shape, "transport": mesh.transport.name}
+    cfg = DCAEConfig()
+    batch = torch.from_numpy(train_batch()).to(dev)
+    tx = make_optimizer(LR, 1e-3, 1.0)
+    want = {"wmsa_block": 30, "conv_glu": 29, "wmsa_attention": 0,
+            **NO_LANES}
+
+    def fresh(c=cfg):
+        model = seeded_model(c, dev)
+        return model, create_train_state(
+            model, tx, torch.Generator(device=dev).manual_seed(1))
+
+    # the one-card step on rank 0 alone, from the same weights and noise
+    if rank == 0:
+        model, state = fresh()
+        step = make_train_step(model, tx, LMBDA, "mse")
+        (_, ref_m), ref_counts, _ = counted(lambda: step(state, batch))
+        check_counts("sp: the one-card step", ref_counts, want)
+        ref_grads = [p.grad.detach().to("cpu", copy=True)
+                     for p in model.parameters()]
+        ref_params = [p.detach().to("cpu", copy=True)
+                      for p in model.parameters()]
+        ref_m = {k: float(v) for k, v in ref_m.items()}
+        torch.cuda.reset_peak_memory_stats()
+        runs = timed_steps(step, state, batch, 4)[1:]
+        res["one_card"] = {"step_ms_runs": runs,
+                           "step_ms_median": float(np.median(runs)),
+                           "peak_memory_bytes":
+                           torch.cuda.max_memory_allocated(),
+                           "forward_held_bytes": forward_bytes(
+                               model, state, batch,
+                               contextlib.nullcontext)}
+        del model, state, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # the sp step: rank 0's rows [0, 128) and rank 1's [128, 256) of g_a
+    # and g_s, the rest alike on both
+    model, state = fresh()
+    step = pmesh.shard_train_step(make_train_step(model, tx, LMBDA, "mse"),
+                                  mesh)
+    (_, m), counts, _ = counted(lambda: step(state, batch))
+    check_finite(m, state)
+    check_counts(f"sp step, rank {rank}", counts, want)
+    m = {k: float(v) for k, v in m.items()}
+    if rank == 0:
+        g_scale = max(float(g.abs().max()) for g in ref_grads)
+        g_err = max(float((p.grad.detach().cpu() - g).abs().max())
+                    for p, g in zip(model.parameters(), ref_grads))
+        d = torch.cat([(p.detach().cpu() - q).abs().ravel()
+                       for p, q in zip(model.parameters(), ref_params)])
+        res["against_one_card"] = {
+            "grad_max_diff_of_largest": g_err / g_scale,
+            "param_p99_lr": float(np.quantile(d.numpy(), 0.99)) / LR,
+            "param_max_lr": float(d.max()) / LR,
+            "loss": m["loss"], "one_card_loss": ref_m["loss"],
+            "metrics_max_rel_diff": max(
+                abs(m[k] - ref_m[k]) / max(abs(ref_m[k]), 1e-30)
+                for k in ref_m)}
+        del ref_grads, ref_params, d
+    everyone = [None] * SP
+    dist.all_gather_object(everyone, {
+        "metrics": m, "params": _param_digest(model), "launches": counts})
+    res["ranks_bitwise_alike"] = all(
+        e["params"] == everyone[0]["params"] for e in everyone)
+    res["rank_metrics_equal"] = all(
+        e["metrics"] == everyone[0]["metrics"] for e in everyone)
+    res["launches_step"] = [e["launches"] for e in everyone]
+    torch.cuda.reset_peak_memory_stats()
+    runs = timed_steps(step, state, batch, 4)[1:]
+    mine = {"step_ms_runs": runs, "step_ms_median": float(np.median(runs)),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "forward_held_bytes": forward_bytes(
+                model, state, batch, lambda: spatial.bands(mesh))}
+    dist.all_gather_object(everyone, mine)
+    res["sp_ranks"] = everyone
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # shard_eval_step on 2 x 768x512 in the inference dtypes: bf16
+    # transforms, f32 entropy side. A bf16 convolution rounds by its
+    # shape's algorithm, so the sp y differs from one card's by bf16
+    # rounding (~1e-2 of the largest, as far as either is from the f32
+    # model's) and some symbols round the other way, which moves x_hat and
+    # the likelihoods where they do (printed, not held). Held: y and g_s on
+    # one y_hat within SP_BF16_VS_F32 times one card's distance from the
+    # f32 model's; y no further from one card's in the rows next to the
+    # band edge than in the others (a halo fault shows at the edge,
+    # rounding everywhere); the bits and the metrics within the bf16 bar
+    model = seeded_model(cfg, dev).set_transform_dtype(torch.bfloat16).eval()
+    x = torch.from_numpy(synthetic_kodak(BATCH, seed=61)).to(dev).float() \
+        / 255.0
+    ev = make_eval_step(model, LMBDA)
+
+    def bits(out, k):
+        return float(-torch.log2(out["likelihoods"][k]).sum())
+
+    with torch.no_grad():
+        with spatial.bands(mesh):
+            out_sp = model(x)
+            x_same_sp = model.synthesis(out_sp["para"]["y_hat"])
+        m_sp = pmesh.shard_eval_step(ev, mesh)(x)
+        m_sp = {k: float(v) for k, v in m_sp.items()}
+        if rank == 0:
+            out_1 = model(x)
+            x_same_1 = model.synthesis(out_sp["para"]["y_hat"])
+            m_1 = {k: float(v) for k, v in ev(x).items()}
+            sym = [torch.round(o["para"]["y"] - o["para"]["means"])
+                   for o in (out_sp, out_1)]
+            res["eval"] = {
+                "y_rel": rel_err(out_sp["para"]["y"], out_1["para"]["y"]),
+                "g_s_same_y_hat_rel": rel_err(x_same_sp, x_same_1),
+                **{f"bits_{k}_rel": abs(bits(out_sp, k) - bits(out_1, k))
+                   / bits(out_1, k) for k in ("y", "z")},
+                "metrics_max_rel_diff": max(
+                    abs(m_sp[k] - m_1[k]) / max(abs(m_1[k]), 1e-30)
+                    for k in m_1),
+                "y_symbols_differ_share": float(
+                    (sym[0] != sym[1]).float().mean()),
+                "x_hat_rel": rel_err(out_sp["x_hat"], out_1["x_hat"]),
+                **{f"likelihoods_{k}_rel": rel_err(
+                    out_sp["likelihoods"][k], out_1["likelihoods"][k])
+                   for k in ("y", "z")},
+                "metrics": m_sp, "one_card_metrics": m_1}
+            # each bf16 result against the f32 model's on the same input
+            ref = seeded_model(cfg, dev).eval()
+            out_f = ref(x)
+            x_same_f = ref.synthesis(out_sp["para"]["y_hat"])
+            res["eval"]["against_f32"] = {
+                "y_sp": rel_err(out_sp["para"]["y"], out_f["para"]["y"]),
+                "y_one_card": rel_err(out_1["para"]["y"],
+                                      out_f["para"]["y"]),
+                "g_s_sp": rel_err(x_same_sp, x_same_f),
+                "g_s_one_card": rel_err(x_same_1, x_same_f)}
+            # where the sp and one-card y differ: the rows next to the band
+            # edge, and the others
+            dy = (out_sp["para"]["y"] - out_1["para"]["y"]).abs().amax(
+                dim=(0, 2, 3))
+            edge = dy.shape[0] // SP
+            res["eval"]["y_max_diff_edge_rows"] = float(
+                dy[edge - 2:edge + 2].max())
+            res["eval"]["y_max_diff_other_rows"] = float(torch.cat(
+                [dy[:edge - 2], dy[edge + 2:]]).max())
+            del ref, out_f
+    del model, out_sp, x
+    torch.cuda.empty_cache()
+
+    # the attention-only configuration: wmsa_attention on the bands
+    model = seeded_model(DCAEConfig(fused_attention_block=False), dev).eval()
+
+    def banded():
+        with torch.no_grad(), spatial.bands(mesh):
+            return model(batch)["x_hat"]
+
+    x_sp, attn_counts, _ = counted(banded)
+    check_counts(f"sp attention-only forward, rank {rank}", attn_counts,
+                 {"wmsa_block": 0, "conv_glu": 29, "wmsa_attention": 30,
+                  **NO_LANES})
+    res["launches_attention_only_forward"] = attn_counts
+    if rank == 0:
+        with torch.no_grad():
+            res["attention_only_x_hat_rel"] = rel_err(x_sp,
+                                                      model(batch)["x_hat"])
+        with open(os.path.join(tmp, "sp.json"), "w") as f:
+            json.dump(res, f)
+        a = res["against_one_card"]
+        e = res["eval"]
+        print("sp: " + json.dumps(res), flush=True)
+        if not (a["grad_max_diff_of_largest"] <= SP_GRAD_TOL
+                and a["param_p99_lr"] <= SP_PARAM_LR
+                and a["metrics_max_rel_diff"] <= TOL["float32"]):
+            fail(f"sp: the sp = 2 step against the one-card step: {a}")
+        if not (res["ranks_bitwise_alike"] and res["rank_metrics_equal"]):
+            fail("sp: the ranks differ after the step")
+        f = e["against_f32"]
+        if not (max(e["bits_y_rel"], e["bits_z_rel"],
+                    e["metrics_max_rel_diff"]) <= TOL["bfloat16"]
+                and f["y_sp"] <= SP_BF16_VS_F32 * f["y_one_card"]
+                and f["g_s_sp"] <= SP_BF16_VS_F32 * f["g_s_one_card"]
+                and e["y_max_diff_edge_rows"]
+                <= e["y_max_diff_other_rows"]):
+            fail(f"sp: the sp = 2 eval against one card: {e}")
+        if not res["attention_only_x_hat_rel"] <= TOL["float32"]:
+            fail(f"sp: attention-only x_hat {res['attention_only_x_hat_rel']}")
+    dist.barrier()
+
+
+def sp_worker(rank: int, port: int, tmp: str) -> None:
+    """One of the SP ranks of the sp phase: gloo (NCCL refuses two ranks on
+    one card), this process's tensors on card 0, the train phase's flags."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=SP, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        _sp_body(rank, tmp)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_probe(procs) -> dict:
+    """The outcomes of the gloo probe's ranks (gloo_probe_worker): which
+    operations gloo takes card tensors for on this machine. The
+    host-staged transport passes all-reduce and all-gather to gloo as
+    they are, so those must take them; the halo exchange (point to point)
+    it stages through the host, whatever the outcome here."""
+    try:
+        texts = [p.communicate(timeout=SP_TIMEOUT_S)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        texts = ["(timed out)"] * len(procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    found = [dict(line.split(" ", 2)[1:] for line in text.splitlines()
+                  if line.startswith("probe ")) for text in texts]
+    # an operation's outcome on each rank
+    out = {name: [f.get(name, f"no answer (exit code {p.returncode})")
+                  for f, p in zip(found, procs)]
+           for name in ("all_reduce", "broadcast", "all_gather",
+                        "send_recv")}
+    print(f"sp: gloo with card tensors: {json.dumps(out)}", flush=True)
+    for name in ("all_reduce", "all_gather"):
+        if out[name] != ["takes cuda tensors"] * len(procs):
+            fail(f"sp: gloo {name} on card tensors: {out[name]}; the "
+                 f"host-staged transport passes it card tensors\n"
+                 + "\n".join(texts))
+    return out
+
+
+def sp_phase() -> dict:
+    """The spatial axis on the card: the halo check in this process, then
+    SP ranks as processes of this script on the one card (sp_worker)."""
+    import socket
+
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    t0 = time.perf_counter()
+    # the gloo probe's two ranks start while the halo check runs here
+    port = free_port()
+    probe = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-probe",
+         str(rank), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        out = {"halo_check": halo_check(torch.Generator().manual_seed(7)),
+               "halo_rows_256": halo_rows(DCAEConfig(), 256),
+               "halo_rows_768x512": halo_rows(DCAEConfig(), 512)}
+    except BaseException:
+        for p in probe:
+            p.kill()
+            p.wait()
+        raise
+    torch.cuda.empty_cache()
+    out["gloo_cuda_tensors"] = gloo_probe(probe)
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="dcae_sp_") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sp-worker",
+             str(rank), str(port), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for rank in range(SP)]
+        try:
+            texts = [p.communicate(timeout=SP_TIMEOUT_S)[0] for p in procs]
+        except subprocess.TimeoutExpired:
+            texts = ["(timed out)"] * SP
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, text in enumerate(texts):
+            print(f"--- sp rank {rank}\n{text.strip()}", flush=True)
+        if any(p.returncode for p in procs):
+            fail(f"sp: rank exit codes {[p.returncode for p in procs]}")
+        with open(os.path.join(tmp, "sp.json")) as f:
+            out.update(json.load(f))
+    out["seconds"] = time.perf_counter() - t0
+    a, one = out["against_one_card"], out["one_card"]
+    ms = " / ".join(f"{r['step_ms_median']:.1f}" for r in out["sp_ranks"])
+    gib = " / ".join(f"{r['peak_memory_bytes'] / 2 ** 30:.2f}"
+                     for r in out["sp_ranks"])
+    print(f"sp: transport {out['transport']}; a step of 8 x 256x256 at sp = "
+          f"{SP}: {ms} ms on the ranks (one card {one['step_ms_median']:.1f}"
+          f"; the two ranks share one card), peak {gib} GiB a rank (one "
+          f"card {one['peak_memory_bytes'] / 2 ** 30:.2f}); gradients "
+          f"{a['grad_max_diff_of_largest']:.2e} of the largest, parameters "
+          f"99% within {a['param_p99_lr']:.2e} lr (largest "
+          f"{a['param_max_lr']:.3f} lr); launches a rank "
+          f"{out['launches_step']}; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "reference",
                                         "slice", "train", "split",
-                                        "serve", "profile", "bands"),
+                                        "serve", "sp", "profile", "bands"),
                     default="all",
                     help="one phase only; profile (not part of all) traces "
                     "the slice with torch.profiler; bands (not part of all) "
                     "times the bf16 conv_glu under three band sizes")
+    # a rank of the sp phase, which starts it: rank, port, result dir
+    ap.add_argument("--sp-worker", nargs=3, help=argparse.SUPPRESS)
+    # a rank of the sp phase's gloo probe: rank, port
+    ap.add_argument("--gloo-probe", nargs=2, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sp_worker:
+        rank, port, tmp = args.sp_worker
+        sp_worker(int(rank), int(port), tmp)
+        return 0
+    if args.gloo_probe:
+        gloo_probe_worker(*map(int, args.gloo_probe))
+        return 0
 
     import torch
 
@@ -2977,6 +3507,9 @@ def main() -> int:
     serve_res = None
     if args.phase in ("all", "serve"):
         serve_res = serve_phase(train_res)
+    sp_res = None
+    if args.phase in ("all", "sp"):
+        sp_res = sp_phase()
     if args.phase == "profile":
         profile_phase()
     if args.phase == "bands":
@@ -3006,6 +3539,8 @@ def main() -> int:
         print(json.dumps({"split": split_res}))
     if serve_res is not None:
         print(json.dumps({"serve": serve_res}))
+    if sp_res is not None:
+        print(json.dumps({"sp": sp_res}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

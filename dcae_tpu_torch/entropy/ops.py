@@ -8,30 +8,49 @@ import threading
 
 import torch
 
-# (rank, world) of a data-parallel step on this thread, else None
+# on this thread: .shard, (dp index, dp) of a data-parallel step, else
+# None; .banned, why no draw may be made here (a row band of a spatial
+# step), else None
 _dp = threading.local()
 
 
 @contextlib.contextmanager
-def dp_noise(rank: int, world: int):
+def dp_noise(dp_rank: int, dp: int):
     """Inside: every training-noise draw (draw_noise) is made for the
-    global batch, world x the local rows, and this rank keeps its rows
-    (rank's block), as a partitioned program on the whole batch draws it.
-    With the same generator state on every rank, a data-parallel step then
-    sees the noise of the one-device step on the global batch."""
+    global batch, dp x the local rows, and this rank keeps the rows of its
+    dp index (block dp_rank), as a partitioned program on the whole batch
+    draws it. With the same generator state on every rank, a data-parallel
+    step then sees the noise of the one-device step on the global batch;
+    the sp ranks of one dp index draw alike."""
     before = getattr(_dp, "shard", None)
-    _dp.shard = (int(rank), int(world))
+    _dp.shard = (int(dp_rank), int(dp))
     try:
         yield
     finally:
         _dp.shard = before
 
 
+@contextlib.contextmanager
+def no_draws(why: str):
+    """Inside: draw_noise raises. A noise draw on a row band would be a
+    band's share of the image's draw, which the band cannot know, so the
+    sharded region of a spatial step (parallel/spatial.py) forbids it."""
+    before = getattr(_dp, "banned", None)
+    _dp.banned = why
+    try:
+        yield
+    finally:
+        _dp.banned = before
+
+
 def draw_noise(shape, generator: torch.Generator, dtype, device,
                normal: bool = False) -> torch.Tensor:
     """U[0, 1) (normal: N(0, 1)) of `shape` (batch first) from
     `generator`; inside dp_noise, this rank's rows of the global batch's
-    draw."""
+    draw. Raises inside no_draws."""
+    banned = getattr(_dp, "banned", None)
+    if banned is not None:
+        raise RuntimeError(f"a training-noise draw inside {banned}")
     shard = getattr(_dp, "shard", None)
     rows = shape[0]
     if shard is not None:

@@ -43,6 +43,7 @@ from dcae_tpu_torch.models.transforms import (GAnalysis, GSynthesis,
 from dcae_tpu_torch.ops.blocks import WMSA, Scale
 from dcae_tpu_torch.ops.dictionary import DictionaryCrossAttention
 from dcae_tpu_torch.ops.layers import reset_layer, trunc_normal_
+from dcae_tpu_torch.parallel import spatial
 
 
 # the one-sided transforms a half of a split deployment may leave out
@@ -137,9 +138,16 @@ class DCAE(nn.Module):
 
     @staticmethod
     def _run(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        """A transform in its own parameter dtype; the result in f32."""
+        """A transform in its own parameter dtype; the result in f32.
+        Inside spatial.bands (an sp step), g_a and g_s run on this rank's
+        row band and their outputs are gathered."""
         # a MissingTransform has no parameters, and raises when called
         dtype = next(module.parameters(), x).dtype
+        mesh = spatial.active()
+        if mesh is not None and isinstance(module, (GAnalysis, GSynthesis)):
+            band = spatial.run_bands(module, spatial.cut(x.to(dtype), mesh),
+                                     mesh)
+            return spatial.gather(band.to(torch.float32), mesh)
         return module(x.to(dtype)).to(torch.float32)
 
     def synthesis(self, y_hat: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Data-parallel deployment over torch.distributed (dp only)."""
+"""Data- and spatial-parallel deployment over torch.distributed."""

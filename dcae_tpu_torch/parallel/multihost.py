@@ -1,6 +1,7 @@
 """Process-group set-up, the JAX package's parallel/multihost.py for
 torch.distributed: one process a device, NCCL between cards (gloo only when
-the caller asks for the CPU).
+the caller asks for the CPU); the (dp, sp) mesh's groups; and the
+transports that carry a rank's tensors through the collectives.
 
 Usage (per process; torchrun sets the environment itself):
     from dcae_tpu_torch.parallel import multihost
@@ -13,7 +14,7 @@ Usage (per process; torchrun sets the environment itself):
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,3 +78,87 @@ def local_batch_to_global(local_batch, mesh) -> Tuple[torch.Tensor, int]:
     t = torch.as_tensor(np.asarray(local_batch)) \
         if not torch.is_tensor(local_batch) else local_batch
     return t.to(mesh.device), int(t.shape[0]) * mesh.dp
+
+
+def mesh_groups(dp: int, sp: int):
+    """(dp group, sp group) of this rank on a (dp, sp) mesh over the whole
+    process group, rank = dp_rank * sp + sp_rank (the JAX mesh's
+    reshape(dp, sp)): the dp group holds the ranks of this sp index, the
+    sp group those of this dp index. Every rank creates every group, in
+    one order, as torch.distributed requires. An axis of one rank has no
+    group (None); an axis of every rank is the whole group."""
+    if sp == 1 or dp == 1:
+        world = dist.group.WORLD
+        return (world if dp > 1 else None), (world if sp > 1 else None)
+    rank = dist.get_rank()
+    for s in range(sp):
+        g = dist.new_group([d * sp + s for d in range(dp)])
+        if rank % sp == s:
+            dp_group = g
+    for d in range(dp):
+        g = dist.new_group([d * sp + s for s in range(sp)])
+        if rank // sp == d:
+            sp_group = g
+    return dp_group, sp_group
+
+
+class Transport:
+    """How a rank's tensors go through the collectives: as they are, on
+    their own device (NCCL with cards, gloo with the CPU). `name` says
+    which."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def all_reduce_(self, t: torch.Tensor, group) -> None:
+        """t <- its sum over the group, in place."""
+        dist.all_reduce(t, group=group)
+
+    def all_gather(self, t: torch.Tensor, group) -> List[torch.Tensor]:
+        """Every rank's t (of one shape), in group rank order."""
+        out = [torch.empty_like(t)
+               for _ in range(dist.get_world_size(group))]
+        dist.all_gather(out, t, group=group)
+        return out
+
+    def exchange(self, sends: Sequence[Tuple[int, torch.Tensor]],
+                 recvs: Sequence[Tuple[int, torch.Tensor]], group) -> None:
+        """Point to point: each (peer, tensor) of sends goes to the peer
+        (a global rank), each of recvs is filled from its peer; every
+        rank of the group calls it, with matching pairs."""
+        ops = [dist.P2POp(dist.isend, t, peer, group) for peer, t in sends]
+        ops += [dist.P2POp(dist.irecv, t, peer, group) for peer, t in recvs]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+
+
+class HostStaged(Transport):
+    """gloo with the ranks' tensors on cards. gloo's all-reduce and
+    all-gather take card tensors (they stage through the host inside
+    gloo), but its point-to-point sends and receives do not
+    (chip_smoke.py's sp phase probes each), so the halo exchange copies
+    each tensor to the host, sends it there, and copies what comes back
+    to its card. The ranks' tensors and every kernel stay on the card;
+    only the exchanged rows cross. This is how two ranks share one card,
+    which NCCL refuses."""
+
+    def __init__(self):
+        super().__init__("gloo-host-staged")
+
+    def exchange(self, sends, recvs, group) -> None:
+        host = [(peer, torch.empty(t.shape, dtype=t.dtype))
+                for peer, t in recvs]
+        super().exchange([(peer, t.cpu()) for peer, t in sends], host,
+                         group)
+        for (_, t), (_, h) in zip(recvs, host):
+            t.copy_(h)
+
+
+def transport(device: torch.device) -> Transport:
+    """The process group's transport for tensors on `device`: host-staged
+    for gloo with card tensors, direct otherwise."""
+    backend = dist.get_backend()
+    if backend == "gloo" and device.type == "cuda":
+        return HostStaged()
+    return Transport(backend)

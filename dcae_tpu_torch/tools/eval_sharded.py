@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Data-parallel forward eval of an image directory, the JAX package's
-tools/eval_sharded.py: the batches are split over the dp axis (one process
-a device, parallel/mesh.py), each rank evaluates its rows, the metrics are
-reduced to the global batch's, and the aggregate likelihood bpp / PSNR /
-loss and the throughput are reported. A batch that does not split into
-equal shards (B % dp != 0) is evaluated whole on the primary rank and
-counted once. The real entropy-coded path stays per codec.
+"""Sharded forward eval of an image directory, the JAX package's
+tools/eval_sharded.py: the batches are split over the dp axis of a (dp, sp)
+mesh (one process a device, parallel/mesh.py) and each image's g_a / g_s
+over image rows by the sp ranks; the metrics are reduced to the global
+batch's, and the aggregate likelihood bpp / PSNR / loss and the throughput
+are reported. A batch that does not split into equal shards (B % dp != 0)
+is evaluated whole on the primary rank and counted once. The real
+entropy-coded path stays per codec.
 
     python -m dcae_tpu_torch.tools.eval_sharded --data DIR [--checkpoint
         CKPT] [--batch-size 8] [--patch 512] [--tiny]
-    torchrun --nproc-per-node 4 -m dcae_tpu_torch.tools.eval_sharded ...
+    torchrun --nproc-per-node 4 -m dcae_tpu_torch.tools.eval_sharded \
+        --sp 2 ...
 
 Runs on the CUDA device(s); --device cpu on the CPU (gloo under torchrun).
 """
@@ -27,7 +29,7 @@ def main(argv=None) -> dict:
     p.add_argument("--patch", type=int, default=None,
                    help="center-crop eval patch (default: pad originals)")
     p.add_argument("--sp", type=int, default=1,
-                   help="spatial mesh axis (not ported: only 1)")
+                   help="spatial mesh axis (dp = n_devices // sp)")
     p.add_argument("--lmbda", type=float, default=0.013)
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--tiny", action="store_true")
@@ -58,7 +60,8 @@ def main(argv=None) -> dict:
     dp = mesh.dp
     primary = multihost.is_primary()
     if primary:
-        print(f"mesh: dp={dp} sp={a.sp} over {dp * a.sp}/{dp} devices")
+        print(f"mesh: dp={dp} sp={mesh.sp} over {mesh.world}/{mesh.world} "
+              "devices")
 
     files = list_images(a.data)
     if a.limit:

@@ -7,8 +7,10 @@ Example (the reference recipe):
         --lr_epoch 46
 
 Runs on the CUDA device; `--device cpu --tiny` is the smoke run on a CPU.
-Data-parallel over several cards (--batch-size is the global batch):
+Data-parallel over several cards (--batch-size is the global batch), and
+with --sp each image split over image rows by sp cards (dp = cards / sp):
     torchrun --nproc-per-node 4 -m dcae_tpu_torch.tools.train -d $DATASET ...
+    torchrun --nproc-per-node 4 -m dcae_tpu_torch.tools.train --sp 2 ...
 """
 
 import argparse
@@ -43,6 +45,8 @@ def parse_args(argv):
                    action="store_false",
                    help="keep params but rebuild optimizer state on resume")
     p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--sp", type=int, default=1,
+                   help="spatial mesh axis size (dp = n_devices / sp)")
     p.add_argument("--drift_noise", type=float, default=0.0,
                    help="train drift-robust")
     p.add_argument("--wandb", action="store_true")
@@ -77,7 +81,7 @@ def main(argv=None):
         lr_epochs=tuple(a.lr_epoch), clip_max_norm=a.clip_max_norm,
         seed=a.seed, save=a.save, save_path=a.save_path,
         checkpoint=a.checkpoint, continue_train=a.continue_train,
-        num_workers=a.num_workers, drift_noise=a.drift_noise,
+        num_workers=a.num_workers, sp=a.sp, drift_noise=a.drift_noise,
         use_wandb=a.wandb,
         freeze_except=("g_a", "h_a") if a.finetune_encoder else None,
         aux_scheduler=a.aux_scheduler, aux_target_loss=a.aux_target_loss,

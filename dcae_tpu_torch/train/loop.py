@@ -1,8 +1,8 @@
-"""The training loop: the canonical RD recipe on one device, or
-data-parallel over every process of a torch.distributed group (torchrun):
+"""The training loop: the canonical RD recipe on one device, or over a
+(dp, sp) mesh of every process of a torch.distributed group (torchrun):
 each rank reads the same global batches (the primary rank's order) and
-trains on its rows (parallel/mesh.py); only the primary rank logs and
-checkpoints.
+trains on its dp index's rows, split over image rows by the sp ranks
+(parallel/mesh.py); only the primary rank logs and checkpoints.
 
 The recipe: dual Adam, clip 1.0, MultiStepLR x0.1 at lr_epochs, batch 8,
 256^2 patches, checkpoints latest / every-5 / best, a resume restores the
@@ -56,6 +56,7 @@ class TrainOptions:
     checkpoint: Optional[str] = None
     continue_train: bool = True
     num_workers: int = 8
+    sp: int = 1                      # spatial mesh axis
     drift_noise: float = 0.0
     log_every: int = 100
     use_wandb: bool = False
@@ -140,11 +141,13 @@ class _NoLogger:
 
 def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
                  device=None) -> TrainState:
-    """Under a process group (parallel/multihost.initialize) the dp axis
-    spans its processes, one device each; opts.batch_size is the global
-    batch and must split into equal rank shards."""
+    """Under a process group (parallel/multihost.initialize) the mesh
+    spans its processes, one device each: dp = processes / opts.sp.
+    opts.batch_size is the global batch and must split into equal dp
+    shards; with sp > 1 the patch height must meet the band rule
+    (parallel/spatial.py)."""
     # this process's device: its own card under a process group
-    mesh = pmesh.make_mesh(device=resolve_device(device))
+    mesh = pmesh.make_mesh(sp=opts.sp, device=resolve_device(device))
     device = mesh.device
     primary = is_primary()
     say = print if primary else (lambda *a, **k: None)
@@ -168,7 +171,8 @@ def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
     model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
     say(f"model: {n_params / 1e6:.1f}M params, "
-        f"{steps_per_epoch} steps/epoch, on {device}, dp {mesh.dp}")
+        f"{steps_per_epoch} steps/epoch, on {device}, dp {mesh.dp} sp "
+        f"{mesh.sp}")
 
     schedule = multistep_lr(
         opts.learning_rate, [m * steps_per_epoch for m in opts.lr_epochs])

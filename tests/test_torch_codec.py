@@ -135,6 +135,7 @@ def test_port_imports_no_jax():
         "             'utils.checkpoint', 'utils.logging', 'utils.convert',\n"
         "             'tools.train', 'eval_lib', 'runtime.service',\n"
         "             'parallel.mesh', 'parallel.multihost',\n"
+        "             'parallel.spatial',\n"
         "             'utils.profiling', 'utils.debug', 'tools.server',\n"
         "             'tools.client', 'tools.eval_sharded'):\n"
         "    assert 'dcae_tpu_torch.' + want in names, want\n"

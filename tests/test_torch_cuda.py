@@ -912,3 +912,86 @@ def test_dp_over_cards_equals_one_card(card, tmp_path):
     # a near-zero gradient's rounding by up to lr a step
     assert shard[0] <= 1e-5
     assert shard[1] <= 2 * 2.1 and shard[2] <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_sp_over_cards_equals_one_card(card, tmp_path, n):
+    """n cards a rank each (NCCL, tests/torch_sp_worker.py in its card
+    mode): sp = 2 on 2 cards, dp = 2 x sp = 2 on 4; the tiny window-8
+    model in f32 on 128x128 images (the band rule's least height at
+    sp = 2), 2 rows a dp index, two steps: every rank bitwise alike, and
+    equal to the same dp shards' steps computed one after another, whole,
+    on one card (torch_dp_common.shard_mean_steps): step 1's gradients
+    within 1e-5 of the largest gradient, the parameters 99% within 1e-3 lr
+    and all within the tiny card step's 2.1 lr a step. Needs n cards."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from dcae_tpu_torch.ops.kernels import _build
+    from tests.torch_dp_common import (TRAIN_KW, card_config, global_batch,
+                                       shard_mean_steps)
+
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards")
+    _build.build_kernels()                # once, before the ranks start
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_sp_worker.py"),
+         str(port), str(n), "2", str(r), str(tmp_path), "cuda"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("the sp ranks timed out:\n" + "\n".join(
+            p.communicate()[0] for p in procs))
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    got = [np.load(str(tmp_path / f"w{n}s2r{r}_step.npz")) for r in range(n)]
+    got_grads = np.load(str(tmp_path / f"w{n}s2r0_grad.npz"))
+    for k in got[0].files:
+        assert all(np.array_equal(g[k], got[0][k]) for g in got), k
+
+    # the ranks' flags: full-f32 products, deterministic cuDNN
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32,
+              torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dp = n // 2
+    try:
+        model, grads = shard_mean_steps(
+            card_config(), "cuda:0",
+            torch.from_numpy(global_batch(2 * dp, 128)).to("cuda:0"), dp,
+            **TRAIN_KW)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    lr = 1e-4
+    g_scale = max(float(np.abs(v).max()) for k, v in grads.items()
+                  if not k.endswith(".k.bias"))
+    g = max(float(np.abs(got_grads[k] - v).max())
+            for k, v in grads.items() if not k.endswith(".k.bias"))
+    d = np.concatenate([np.abs(got[0][k] - v.detach().cpu().numpy()).ravel()
+                        for k, v in model.state_dict().items()])
+    p_max, p99 = float(d.max()) / lr, float(np.quantile(d, 0.99)) / lr
+    print(f"sp = 2 over {n} cards (dp = {dp}) against the shards on one "
+          f"card: gradients {g / g_scale:.3e} of the largest, parameters "
+          f"{p_max:.3e} lr at most, 99% within {p99:.3e} lr")
+    # the key biases (true gradient 0) are held with the parameters, as in
+    # test_dp_over_cards_equals_one_card
+    assert g / g_scale <= 1e-5
+    assert p_max <= 2 * 2.1 and p99 <= 1e-3

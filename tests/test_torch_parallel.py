@@ -14,8 +14,9 @@ batch, at the tiny config.
 - one data-parallel run_training epoch (a leftover test batch included),
   the ranks' str hashes salted apart, against the same epoch in one
   process salted as the primary rank;
-- make_mesh(sp=2) raises; without a process group the mesh is one device
-  and the step is the plain step; dp_noise cuts the global draw.
+- make_mesh(sp=2) raises without a group (sp must divide the processes);
+  without a process group the mesh is one device and the step is the
+  plain step; dp_noise cuts the global draw.
 The two ranks and the one-process run go once for the module, side by
 side, in about 10 s.
 """
@@ -205,7 +206,9 @@ def test_run_training_dp_equals_one_process(dp_run):
 
 
 def test_make_mesh_rejects_sp():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """sp must divide the processes: one process without a group has sp
+    = 1 only (tests/test_torch_spatial.py: the sp axis itself)."""
+    with pytest.raises(ValueError, match="does not divide"):
         pmesh.make_mesh(sp=2, device="cpu")
 
 

@@ -117,7 +117,7 @@ def test_default_aux_scheduler_resolution():
     assert resolve_aux_scheduler(off, DCAEConfig()) is False
     on = dataclasses.replace(opts, aux_scheduler=True)
     assert resolve_aux_scheduler(on, DCAEConfig.tiny()) is True
-    assert not hasattr(opts, "sp")
+    assert opts.sp == 1
 
 
 def test_set_get_aux_lr_and_boost_moves_quantiles_faster():
@@ -438,8 +438,8 @@ def test_run_training_refuses_cpu_fallback(tmp_path):
 
 
 def test_cli_flags(tmp_path, monkeypatch):
-    """The CLI has tools/train.py's flags (without --sp) plus --device, and
-    hands them to run_training."""
+    """The CLI has tools/train.py's flags (--sp included) plus --device,
+    and hands them to run_training."""
     from dcae_tpu_torch.tools import train as cli
 
     seen = {}
@@ -447,14 +447,14 @@ def test_cli_flags(tmp_path, monkeypatch):
                         seen.update(opts=opts, cfg=cfg, device=device))
     cli.main(["-d", str(tmp_path), "--tiny", "--device", "cpu", "--epochs",
               "3", "--lr_epoch", "1", "2", "--finetune_encoder", "--type",
-              "ms-ssim", "--no-aux_scheduler", "--precision_reg", "0.001"])
+              "ms-ssim", "--no-aux_scheduler", "--precision_reg", "0.001",
+              "--sp", "2"])
     o = seen["opts"]
     assert seen["device"] == "cpu" and seen["cfg"].N == 16
     assert (o.epochs, o.lr_epochs, o.freeze_except, o.loss_type) == (
         3, (1, 2), ("g_a", "h_a"), "ms-ssim")
     assert o.aux_scheduler is False and o.precision_reg == 0.001
-    with pytest.raises(SystemExit):
-        cli.parse_args(["-d", "x", "--sp", "2"])
+    assert o.sp == 2 and cli.parse_args(["-d", "x"]).sp == 1
 
 
 @pytest.mark.slow
