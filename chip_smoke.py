@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phase split
     python3 chip_smoke.py --phase serve
     python3 chip_smoke.py --phase sp
+    python3 chip_smoke.py --phase tools
+    python3 chip_smoke.py --phase validate   # the records' full run
 
 Phases, in order:
   build      nvcc builds every kernel of csrc/ from this checkout (one
@@ -163,6 +165,35 @@ Phases, in order:
                         configuration's forward (30 wmsa_attention a rank,
                         x_hat at TOL f32).
              It prints one JSON line of its own ({"sp": ...}).
+  tools      the six root tools of the port through their entry points
+             (dcae_tpu_torch/tools), at reduced depth, each run with the
+             launch counters set to 0 just before it and read just after
+             (each must launch its path's kernels and no other):
+             validate_training --full, 2 epochs of 32 synthetic 256x256
+                        PNGs at batch 8 (8 full-width f32 steps through
+                        wmsa_block and conv_glu and their recompute
+                        backwards; the real-coded eval before and after):
+                        summary.json written, finite, the checkpoint a
+                        strict load; PASS / FAIL printed (information at
+                        this depth);
+             rd_sweep_eval on that checkpoint and a seeded one (2 images);
+             lanes_ab K 512 / 256, 1 round, batch 2 of 768x512 (seeded
+                        bf16 codec): every lanes checksum holds;
+             profile_interleaved --stage decode, batch 2: the region
+                        budget, `other` under half the device time, the
+                        lane coders and the window kernel seen on the card;
+             bench_wmsa (wmsa_attention at the three stage shapes, batch
+                        8) in bf16 and f32, 3 reps; bench_link, 3 reps.
+             It prints one JSON line of its own ({"tools": ...}).
+  validate   (only with --phase validate) the records' full run:
+             validate_training --full at the JAX package's protocol (200
+             synthetic PNGs, 8 epochs x 25 steps, batch 8, 256x256) at
+             lambda 0.013, 0.0018 and 0.05; rd_sweep_eval over the three
+             checkpoints (8 images); cross-device decode without shipped
+             indexes on the lambda 0.013 weights, card -> CPU and CPU ->
+             card; lanes_ab (K 1024 / 512 / 256 / 128, batch 8, 3 rounds)
+             and profile_interleaved (both stages, batch 8) on them.
+             It prints one JSON line of its own ({"validate": ...}).
   profile    (only with --phase profile) device time of one slice run by
              kernel, from torch.profiler: staged, shipped-index and
              interleaved pairs; then of one full-width training step.
@@ -186,6 +217,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from dcae_tpu_torch.data.synthetic import synthetic_kodak
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 non-tensor
@@ -262,30 +295,16 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() over `iters` launches (CUDA events). The
-    launches queue behind a sleep kernel that outlasts their enqueue, so
-    they run back to back and the host's time to enqueue them (a wrapper's
-    checks and allocations, ~0.1 ms: more than a small kernel runs) does
-    not count."""
-    import torch
+    """Mean device time of fn() over `iters` launches (CUDA events) after
+    `warmup` calls. The launches queue behind a sleep kernel that outlasts
+    their enqueue, so they run back to back and the host's time to enqueue
+    them (a wrapper's checks and allocations, ~0.1 ms: more than a small
+    kernel runs) does not count (utils/profiling.py: device_ms)."""
+    from dcae_tpu_torch.utils.profiling import device_ms
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    call_s = time.perf_counter() - t0     # bounds one call's enqueue
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # cycles at no more than 2 GHz: at least this many seconds
-    torch.cuda._sleep(int((2 * iters * call_s + 1e-3) * 2e9))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return device_ms(fn, iters)
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -367,26 +386,6 @@ def conv_glu_inputs(H, W, C, hidden, dtype, gen, batch=BATCH):
     return x.to(dtype), [t.to(dtype).contiguous() for t in p]
 
 
-def sdpa_yardstick(x, p, heads, shifted):
-    """One SDPA call over the windows' q/k/v with the same bias and mask:
-    the attention core of wmsa_block (no LN, qkv or proj)."""
-    import torch
-    import torch.nn.functional as F
-    from dcae_tpu_torch.ops.kernels.wmsa_block import (
-        relative_position_bias, shifted_window_mask)
-
-    B, H, W, C = x.shape
-    nh, nw, hd = H // 8, W // 8, C // heads
-    q, k, v = (torch.randn((B, nh * nw, heads, 64, hd), device=x.device,
-                           dtype=x.dtype) for _ in range(3))
-    bias = relative_position_bias(p[-1].float())          # (heads, 64, 64)
-    if shifted:
-        mask = torch.as_tensor(shifted_window_mask(nh, nw), device=x.device)
-        bias = bias[None].masked_fill(mask[:, None], float("-inf"))[None]
-    bias = bias.to(x.dtype)
-    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-
-
 def kernel_phase(gen) -> dict:
     import torch
     from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu, conv_glu_ref
@@ -394,6 +393,7 @@ def kernel_phase(gen) -> dict:
         wmsa_attention, wmsa_attention_ref)
     from dcae_tpu_torch.ops.kernels.wmsa_block import (wmsa_block,
                                                        wmsa_block_ref)
+    from dcae_tpu_torch.utils.profiling import sdpa_call
 
     # wmsa_attention takes (x, wqkv, bqkv, wproj, bproj, rel): the block's
     # weights without ln_w, ln_b, rs
@@ -406,7 +406,7 @@ def kernel_phase(gen) -> dict:
             for dtype in ("bfloat16", "float32"):
                 x, p = wmsa_inputs(H, W, C, heads, getattr(torch, dtype),
                                    gen)
-                lib = sdpa_yardstick(x, p, heads, shifted)
+                lib = sdpa_call(x, p[-1], heads, shifted)
                 p = p[skip:]
                 kw = dict(heads=heads, shifted=shifted)
                 got = fn(x, *p, **kw)
@@ -543,6 +543,7 @@ def train_kernel_rows(results: dict, gen) -> None:
         wmsa_attention, wmsa_attention_ref)
     from dcae_tpu_torch.ops.kernels.wmsa_block import (wmsa_block,
                                                        wmsa_block_ref)
+    from dcae_tpu_torch.utils.profiling import sdpa_call
 
     dtype = "float32"
 
@@ -589,8 +590,8 @@ def train_kernel_rows(results: dict, gen) -> None:
             repeat = bool(torch.equal(got, again))
             ms = time_ms(lambda: fn(x, *p, **kw))
             plain_ms = time_ms(lambda: ref(x, *p, **kw), iters=2, warmup=1)
-            lib_ms = time_ms(sdpa_yardstick(x, p, kw["heads"],
-                                            kw["shifted"])) \
+            lib_ms = time_ms(sdpa_call(x, p[-1], kw["heads"],
+                                       kw["shifted"])) \
                 if name != "conv_glu" else None
         del got, want, again
         g_err, g, leaves = grad_check(fn, ref, x, p, kw, gen)
@@ -924,34 +925,6 @@ def reference_phase() -> None:
 
 
 # --------------------------------------------------------------- slice --
-
-def synthetic_kodak(n: int, h: int = 512, w: int = 768,
-                    seed: int = 100) -> np.ndarray:
-    """Structured synthetic images (gradients, block texture, soft
-    rectangles, mild noise) as uint8 (n, h, w, 3): the JAX package's
-    benchmark corpus, reproduced here."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
-    imgs = np.empty((n, h, w, 3), np.float32)
-    for i in range(n):
-        img = np.stack([
-            0.5 + 0.5 * np.sin(2 * np.pi * (rng.uniform(0.5, 2) * xx
-                                            + rng.uniform(0, 1))),
-            0.5 + 0.5 * np.sin(2 * np.pi * (rng.uniform(0.5, 2) * yy
-                                            + rng.uniform(0, 1))),
-            0.5 * (xx + yy),
-        ], axis=-1)
-        blocks = rng.uniform(0, 1, (8, 8, 3))
-        img = 0.6 * img + 0.4 * np.kron(blocks, np.ones((h // 8, w // 8, 1)))
-        for _ in range(6):
-            t = rng.integers(0, h - 32)
-            l = rng.integers(0, w - 32)
-            bh, bw = rng.integers(16, 160, 2)
-            img[t:t + bh, l:l + bw] = (0.7 * img[t:t + bh, l:l + bw]
-                                       + 0.3 * rng.uniform(0, 1, 3))
-        imgs[i] = img + rng.normal(0, 0.01, img.shape)
-    return (np.clip(imgs, 0, 1) * 255).round().astype(np.uint8)
-
 
 def _wrappers() -> dict:
     from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu
@@ -3445,15 +3418,208 @@ def sp_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------- tools --
+
+# the kernels each tool's run must launch (every other count must be 0)
+TOOL_KERNELS = {
+    "validate_training": ("wmsa_block", "conv_glu"),
+    "rd_sweep_eval": ("wmsa_block", "conv_glu"),
+    "lanes_ab": ("wmsa_block", "conv_glu", "rans_lanes_encode",
+                 "rans_lanes_decode"),
+    "profile_interleaved": ("wmsa_block", "conv_glu", "rans_lanes_encode",
+                            "rans_lanes_decode"),
+    "bench_wmsa": ("wmsa_attention",),
+    "bench_link": (),
+}
+
+
+def tool_run(name: str, fn, label: str = "") -> tuple:
+    """fn() (one tool's entry point) with the launch counters set to 0
+    just before it and read just after; fails unless it launched the
+    kernels of TOOL_KERNELS[name] and no other. Returns (result, counts,
+    seconds)."""
+    out, counts, ms = counted(fn)
+    want = TOOL_KERNELS[name]
+    wrong = {k: n for k, n in counts.items() if bool(n) != (k in want)}
+    print(f"tools {name}{label}: {ms / 1e3:.1f} s, launches {counts}",
+          flush=True)
+    if wrong:
+        fail(f"tools: {name}{label} launched {counts}; want launches of "
+             f"{list(want)} only")
+    return out, counts, ms / 1e3
+
+
+def run_validation(data: str, save: str, epochs: int, n_train: int,
+                   lmbda: float) -> dict:
+    """validate_training --full through its CLI entry point on `data`
+    (batch 8, 256x256 patches): its exit code, summary.json, and a strict
+    load of the trained checkpoint into the full-width model."""
+    import torch
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.dcae import DCAE
+    from dcae_tpu_torch.tools import validate_training
+    from dcae_tpu_torch.utils.checkpoint import load_params_only
+
+    argv = ["--full", "--data", data, "--save_path", save, "--epochs",
+            str(epochs), "--n-train", str(n_train), "--batch-size", "8",
+            "--patch-size", "256", "--lmbda", str(lmbda)]
+    rc, counts, sec = tool_run("validate_training",
+                               lambda: validate_training.main(argv),
+                               f" (lambda {lmbda})")
+    with open(os.path.join(save, "summary.json")) as f:
+        summary = json.load(f)
+    ckpt = os.path.join(save, "checkpoint_latest.ckpt")
+    DCAE(DCAEConfig()).load_state_dict(load_params_only(ckpt), strict=True)
+    finite = all(np.isfinite(summary[k]) for k in (
+        "loss_first", "loss_last", "bpp_first", "bpp_last",
+        "real_bpp_untrained", "real_bpp_trained", "real_psnr_trained"))
+    print(f"tools validate_training (lambda {lmbda}): VALIDATION "
+          f"{'PASS' if rc == 0 else 'FAIL'}; " + json.dumps(summary),
+          flush=True)
+    if not finite:
+        fail(f"validate_training (lambda {lmbda}): a summary value is not "
+             "finite")
+    torch.cuda.empty_cache()
+    return {"pass": rc == 0, "summary": summary, "checkpoint": ckpt,
+            "launches": counts, "seconds": sec}
+
+
+def run_lanes_profile(ckpt, ks: str, rounds: int, batch: int,
+                      stage: str) -> dict:
+    """lanes_ab (every decode's checksum asserted by the tool) and
+    profile_interleaved on ckpt (seeded weights when None): their tables,
+    the profile's region budget, whose `other` must hold less than half the
+    device time (the regions match the port's kernel names) and which must
+    have seen the lane coders and the window kernel on the card."""
+    from dcae_tpu_torch.tools import lanes_ab, profile_interleaved
+
+    ck = ["--ckpt", ckpt or ""]
+    lanes, lanes_counts, lanes_s = tool_run("lanes_ab", lambda: lanes_ab.main(
+        ["--ks", ks, "--rounds", str(rounds), "--batch", str(batch)] + ck))
+    prof, prof_counts, prof_s = tool_run(
+        "profile_interleaved", lambda: profile_interleaved.main(
+            ["--stage", stage, "--batch", str(batch)] + ck))
+    budget = {}
+    for st, s in prof.items():
+        calls = s["n_iters"]
+        regions = {k: v / calls for k, v in s["by_group"].items()}
+        total = s["total_ms"] / calls
+        other = regions.get("other", 0.0) / total
+        budget[st] = {"device_ms_per_call": total, "regions_ms": regions,
+                      "other_share": other}
+        if not (other < 0.5 and regions.get("rans_lanes_kernel", 0) > 0
+                and regions.get("wmsa_kernel", 0) > 0):
+            fail(f"profile_interleaved {st}: regions {regions} of "
+                 f"{total:.3f} ms (other must be < 50%, the lane coders and "
+                 "the window kernel present)")
+    return {"lanes_ab": {str(k): v for k, v in lanes.items()},
+            "lanes_ab_launches": lanes_counts, "lanes_ab_s": lanes_s,
+            "profile": budget, "profile_launches": prof_counts,
+            "profile_s": prof_s}
+
+
+def tools_phase() -> dict:
+    """The six tools through their entry points, at reduced depth: the
+    card run of each, its launches, its output checked."""
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.data.synthetic import make_dataset
+    from dcae_tpu_torch.models.dcae import DCAE
+    from dcae_tpu_torch.tools import bench_link, bench_wmsa, rd_sweep_eval
+    from dcae_tpu_torch.utils.checkpoint import save_checkpoint
+
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth")
+        make_dataset(data, n_train=32)
+        # 2 epochs of 4 steps: 8 full-width steps of 8 x 256x256
+        out["validate_training"] = run_validation(
+            data, os.path.join(tmp, "run"), 2, 32, 0.013)
+        seeded = os.path.join(tmp, "seeded.ckpt")
+        model = DCAE(DCAEConfig())
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        save_checkpoint(seeded, model, 0, 0.0)
+        del model
+        sweep, counts, sec = tool_run(
+            "rd_sweep_eval", lambda: rd_sweep_eval.main(
+                ["--points", f"0.05:{seeded}",
+                 f"0.013:{out['validate_training']['checkpoint']}",
+                 "--data", data, "--images", "2"]))
+        if len(sweep["points"]) != 2 or not all(
+                np.isfinite(r["bpp"]) and r["bpp"] > 0
+                and np.isfinite(r["psnr"]) for r in sweep["points"]):
+            fail(f"rd_sweep_eval: points {sweep['points']}")
+        out["rd_sweep_eval"] = {"points": sweep["points"],
+                                "bd_rate_vs_anchor_pct":
+                                sweep["bd_rate_vs_anchor_pct"],
+                                "launches": counts, "seconds": sec}
+    out.update(run_lanes_profile(None, "512,256", 1, BATCH, "decode"))
+    for dt in ("bf16", "f32"):
+        res, counts, sec = tool_run(
+            "bench_wmsa", lambda dt=dt: bench_wmsa.main(
+                ["--dtype", dt, "--reps", "3"]), f" {dt}")
+        out[f"bench_wmsa_{dt}"] = {**res, "launches": counts,
+                                   "seconds": sec}
+    out["bench_link"], _, _ = tool_run("bench_link",
+                                       lambda: bench_link.main(["3"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"tools phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ------------------------------------------------------------ validate --
+
+def validate_phase() -> dict:
+    """The records' full run (not part of all): validate_training --full
+    at the JAX package's protocol (200 synthetic 256x256 PNGs, 8 epochs of
+    25 steps, batch 8) at lambda 0.013, 0.0018 and 0.05; rd_sweep_eval
+    over the three checkpoints; lanes_ab (K 1024 / 512 / 256 / 128, batch
+    8, 3 rounds) and profile_interleaved on the lambda 0.013 checkpoint;
+    cross-device decode without shipped indexes on its weights, both ways.
+    The checkpoints stay in a temporary directory."""
+    from dcae_tpu_torch.data.synthetic import make_dataset
+    from dcae_tpu_torch.tools import rd_sweep_eval
+    from dcae_tpu_torch.utils.checkpoint import load_params_only
+
+    t_phase = time.perf_counter()
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth")
+        make_dataset(data, n_train=200)
+        for lam in (0.013, 0.0018, 0.05):
+            out["runs"][str(lam)] = run_validation(
+                data, os.path.join(tmp, f"lam{lam}"), 8, 200, lam)
+        points = [f"{lam}:{out['runs'][str(lam)]['checkpoint']}"
+                  for lam in (0.05, 0.013, 0.0018)]
+        sweep, counts, sec = tool_run(
+            "rd_sweep_eval", lambda: rd_sweep_eval.main(
+                ["--points", *points, "--data", data, "--images", "8"]))
+        out["rd_sweep"] = {k: sweep[k] for k in (
+            "points", "bd_rate_vs_anchor_pct", "anchor", "caveat")}
+        ckpt = out["runs"]["0.013"]["checkpoint"]
+        out["cross_device_unshipped"] = cross_device_part(
+            load_params_only(ckpt))
+        out.update(run_lanes_profile(ckpt, "1024,512,256,128", 3, 8,
+                                     "both"))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"validate phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "reference",
                                         "slice", "train", "split",
-                                        "serve", "sp", "profile", "bands"),
+                                        "serve", "sp", "tools", "profile",
+                                        "bands", "validate"),
                     default="all",
                     help="one phase only; profile (not part of all) traces "
                     "the slice with torch.profiler; bands (not part of all) "
-                    "times the bf16 conv_glu under three band sizes")
+                    "times the bf16 conv_glu under three band sizes; "
+                    "validate (not part of all) trains three checkpoints "
+                    "and measures them with the tools")
     # a rank of the sp phase, which starts it: rank, port, result dir
     ap.add_argument("--sp-worker", nargs=3, help=argparse.SUPPRESS)
     # a rank of the sp phase's gloo probe: rank, port
@@ -3510,6 +3676,12 @@ def main() -> int:
     sp_res = None
     if args.phase in ("all", "sp"):
         sp_res = sp_phase()
+    tools_res = None
+    if args.phase in ("all", "tools"):
+        tools_res = tools_phase()
+    validate_res = None
+    if args.phase == "validate":
+        validate_res = validate_phase()
     if args.phase == "profile":
         profile_phase()
     if args.phase == "bands":
@@ -3541,6 +3713,10 @@ def main() -> int:
         print(json.dumps({"serve": serve_res}))
     if sp_res is not None:
         print(json.dumps({"sp": sp_res}))
+    if tools_res is not None:
+        print(json.dumps({"tools": tools_res}))
+    if validate_res is not None:
+        print(json.dumps({"validate": validate_res}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

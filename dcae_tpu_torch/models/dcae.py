@@ -145,9 +145,8 @@ class DCAE(nn.Module):
         dtype = next(module.parameters(), x).dtype
         mesh = spatial.active()
         if mesh is not None and isinstance(module, (GAnalysis, GSynthesis)):
-            band = spatial.run_bands(module, spatial.cut(x.to(dtype), mesh),
-                                     mesh)
-            return spatial.gather(band.to(torch.float32), mesh)
+            return spatial.run_split(module, x.to(dtype), mesh,
+                                     torch.float32)
         return module(x.to(dtype)).to(torch.float32)
 
     def synthesis(self, y_hat: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,16 @@
 The JAX package shards an NHWC batch as P('dp', 'sp', None, None) and
 XLA's SPMD partitioner inserts the halo exchanges. Here they are written
 out. Inside `bands(mesh)` (shard_train_step / shard_eval_step enter it),
-DCAE._run runs g_a and g_s on this sp rank's band of image rows:
+DCAE._run runs g_a and g_s on this sp rank's band of image rows
+(run_split):
 
     y     = gather(run_bands(g_a, cut(x)))        x whole on every sp rank
-    x_hat = gather(run_bands(g_s, cut(y_hat)))
+    x_hat = gather(run_bands(g_s, cut(y_hat)))    (bands of band_rows)
+
+The bands may differ in height, as XLA's partitioner lets an sp axis
+split any height: each band is a whole number of row_multiple rows, and
+the first (H / row_multiple) mod sp bands hold one multiple more
+(band_rows).
 
 Everything between them (h_a, the hyper synthesis, the bottleneck, the
 slices, the loss) runs alike on every sp rank on the whole y: at 256x256
@@ -15,9 +21,10 @@ y is 16x16 and z 4x4, and a window-4 hyper block has no band to split.
 Three autograd Functions move the rows over the sp group:
 - cut: the band; its gradient is zero-padded back to every row, with no
   communication;
-- gather: the bands all-gathered into every row; its gradient is the sum
-  over the sp group of the whole gradient, of which each rank keeps its
-  band (a reduce-scatter);
+- gather: the bands all-gathered into every row (each padded to the
+  tallest, since all_gather takes one shape, then cropped); its gradient
+  is the sum over the sp group of the whole gradient, of which each rank
+  keeps its band (a reduce-scatter);
 - halo: rows from each neighbour; the halo rows' gradients go back to
   their owners, which add them to their boundary rows.
 Every sp rank back-propagates the whole, replicated loss, so the
@@ -37,9 +44,10 @@ masked bottom row, where the own half attends to itself alone, as on one
 device. So the kernels run unchanged on the extended bands.
 
 Shape rules, raised and never padded around: a band holds whole windows
-at every Swin stage of the transform (row_multiple: image heights a
-multiple of 8 * window * sp for g_a), and the halo a layer needs fits in
-one neighbour's band.
+at every Swin stage of the transform (row_multiple: for g_a, image heights
+a multiple of 8 * window, at least one multiple a band), and the halo a
+layer needs fits in the neighbour's band it comes from: a halo from two
+ranks away is refused.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ import contextlib
 import math
 import threading
 from fractions import Fraction
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -129,18 +137,22 @@ class _Cut(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh, ctx.rows = mesh, x.shape[1]
-        return torch.cat(mesh.transport.all_gather(x.contiguous(),
-                                                   mesh.sp_group), dim=1)
+    def forward(ctx, x, mesh, rows: Tuple[int, ...]):
+        ctx.mesh, ctx.rows = mesh, rows
+        tallest = max(rows)
+        if x.shape[1] < tallest:
+            x = torch.cat([x, x.new_zeros((x.shape[0], tallest - x.shape[1],
+                                           *x.shape[2:]))], dim=1)
+        parts = mesh.transport.all_gather(x.contiguous(), mesh.sp_group)
+        return torch.cat([p[:, :n] for p, n in zip(parts, rows)], dim=1)
 
     @staticmethod
     def backward(ctx, g):
         mesh, rows = ctx.mesh, ctx.rows
         total = g.contiguous().clone()
         mesh.transport.all_reduce_(total, mesh.sp_group)
-        r0 = mesh.sp_rank * rows
-        return total[:, r0:r0 + rows], None
+        r0 = sum(rows[:mesh.sp_rank])
+        return total[:, r0:r0 + rows[mesh.sp_rank]], None, None
 
 
 class _Halo(torch.autograd.Function):
@@ -168,30 +180,48 @@ class _Halo(torch.autograd.Function):
         return gx, None, None, None
 
 
-def cut(x: torch.Tensor, mesh) -> torch.Tensor:
-    """This sp rank's band of x's rows (NHWC): rows [r0, r0 + H / sp),
-    r0 = sp_rank * H / sp. Raises when sp does not divide H."""
-    H = x.shape[1]
-    if H % mesh.sp:
-        raise ValueError(f"sp band rule: {H} rows do not split into "
-                         f"sp = {mesh.sp} bands")
-    n = H // mesh.sp
-    return _Cut.apply(x, mesh.sp_rank * n, (mesh.sp_rank + 1) * n)
+def band_rows(H: int, multiple: int, sp: int) -> List[int]:
+    """The heights of the sp bands of H rows, top to bottom: each a whole
+    number of `multiple` rows, the first (H / multiple) mod sp one
+    multiple taller than the rest. Raises when H is not a multiple of
+    `multiple` or holds fewer multiples than bands."""
+    if H % multiple or H // multiple < sp:
+        raise ValueError(
+            f"sp band rule: bands of a multiple of {multiple} rows, so "
+            f"heights of a multiple of {multiple} rows, at least {multiple} "
+            f"* sp = {multiple * sp}; got {H}")
+    q, r = divmod(H // multiple, sp)
+    return [(q + (i < r)) * multiple for i in range(sp)]
 
 
-def gather(band: torch.Tensor, mesh) -> torch.Tensor:
-    """Every sp rank's band, in row order: the whole tensor on each."""
-    return _Gather.apply(band, mesh)
+def cut(x: torch.Tensor, mesh, rows: Sequence[int]) -> torch.Tensor:
+    """This sp rank's band of x's rows (NHWC), the bands of heights `rows`
+    top to bottom."""
+    r0 = sum(rows[:mesh.sp_rank])
+    return _Cut.apply(x, r0, r0 + rows[mesh.sp_rank])
 
 
-def halo(band: torch.Tensor, top: int, bottom: int, mesh) -> torch.Tensor:
+def gather(band: torch.Tensor, mesh, rows: Sequence[int]) -> torch.Tensor:
+    """Every sp rank's band, in row order: the whole tensor on each. rows:
+    every band's height."""
+    return _Gather.apply(band, mesh, tuple(rows))
+
+
+def halo(band: torch.Tensor, top: int, bottom: int, mesh,
+         rows: Sequence[int]) -> torch.Tensor:
     """The band extended by `top` rows of the band above and `bottom` of
-    the band below; none at the image's top or bottom edge."""
-    n = band.shape[1]
-    if max(top, bottom) > n:
-        raise ValueError(f"sp band rule: a halo of {max(top, bottom)} rows "
-                         f"exceeds a neighbour's band of {n} rows; take a "
-                         "taller image or a smaller sp")
+    the band below; none at the image's top or bottom edge. rows: every
+    band's height. Raises, on every rank alike, where a halo is taller
+    than the band it comes from: its rows would come from two ranks
+    away."""
+    for i in range(1, len(rows)):
+        for need, src in ((top, i - 1), (bottom, i)):
+            if need > rows[src]:
+                raise ValueError(
+                    f"sp band rule: a halo of {need} rows exceeds a "
+                    f"neighbour's band of {rows[src]} rows (band {src} of "
+                    f"{list(rows)}), so it would come from two ranks away; "
+                    "take a taller image or a smaller sp")
     return _Halo.apply(band, top, bottom, mesh)
 
 
@@ -251,18 +281,21 @@ def row_multiple(transform: nn.Sequential) -> int:
     return need
 
 
-def _extended(m: nn.Module, band: torch.Tensor, mesh) -> torch.Tensor:
+def _extended(m: nn.Module, band: torch.Tensor, mesh, rows: List[int]
+              ) -> torch.Tensor:
     """m on the band, through its receptive field's halo, cropped to the
-    band's output rows (whole numbers under row_multiple's rule)."""
+    band's output rows (whole numbers under row_multiple's rule). rows:
+    every band's height at m's input."""
     top, bottom = reach(m)
     up, _ = _neighbours(mesh)
     f = scale(m)
     first = int((top if up is not None else 0) * f)
-    return m(halo(band, top, bottom, mesh))[
+    return m(halo(band, top, bottom, mesh, rows))[
         :, first:first + int(band.shape[1] * f)]
 
 
-def _swin_stack(stack: SwinStack, band: torch.Tensor, mesh) -> torch.Tensor:
+def _swin_stack(stack: SwinStack, band: torch.Tensor, mesh,
+                rows: List[int]) -> torch.Tensor:
     """SwinStack.forward on a band: each block on the band extended by one
     window of rows a side, cropped; the trailing conv through its halo."""
     w = stack.window_size
@@ -274,24 +307,36 @@ def _swin_stack(stack: SwinStack, band: torch.Tensor, mesh) -> torch.Tensor:
     first = w if up is not None else 0
     t = band
     for layer in stack.layers:
-        t = layer(halo(t, w, w, mesh))[:, first:first + H]
-    return _extended(stack.conv, t, mesh) + band
+        t = layer(halo(t, w, w, mesh, rows))[:, first:first + H]
+    return _extended(stack.conv, t, mesh, rows) + band
 
 
-def run_bands(transform: nn.Sequential, band: torch.Tensor, mesh
-              ) -> torch.Tensor:
+def run_bands(transform: nn.Sequential, band: torch.Tensor, mesh,
+              rows: Sequence[int]) -> torch.Tensor:
     """transform (g_a or g_s) on this rank's row band, the halo rows from
-    the neighbouring sp ranks; returns the output's band. Raises on a band
-    height that breaks the shape rules, and on a noise draw inside."""
-    n, m = band.shape[1], row_multiple(transform)
-    if n % m:
+    the neighbouring sp ranks; returns the output's band. rows: every
+    band's height. Raises on band heights that break the shape rules, and
+    on a noise draw inside."""
+    m = row_multiple(transform)
+    if any(n % m for n in rows):
         raise ValueError(
             f"sp band rule: {type(transform).__name__} takes bands of a "
-            f"multiple of {m} rows, so heights of a multiple of {m} * sp "
-            f"= {m * mesh.sp}; got {n * mesh.sp}")
+            f"multiple of {m} rows; got {rows}")
     with no_draws("the row bands of an sp step"):
         for part in transform:
-            band = (_swin_stack(part, band, mesh)
+            band = (_swin_stack(part, band, mesh, rows)
                     if isinstance(part, SwinStack)
-                    else _extended(part, band, mesh))
+                    else _extended(part, band, mesh, rows))
+            rows = [int(n * scale(part)) for n in rows]
     return band
+
+
+def run_split(transform: nn.Sequential, x: torch.Tensor, mesh,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """transform (g_a or g_s) on x, whole on every sp rank: this rank's
+    band of band_rows through run_bands, the output bands gathered whole
+    in out_dtype. Raises where x's height breaks the band rule."""
+    rows = band_rows(x.shape[1], row_multiple(transform), mesh.sp)
+    band = run_bands(transform, cut(x, mesh, rows), mesh, rows)
+    f = math.prod((scale(p) for p in transform), start=Fraction(1))
+    return gather(band.to(out_dtype), mesh, [int(n * f) for n in rows])

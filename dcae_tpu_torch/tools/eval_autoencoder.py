@@ -12,8 +12,10 @@ time, a size analysis of one image, and g_a / g_s sizes.
         [--checkpoint ae.ckpt | --from_dcae dcae.ckpt] [--split \
         --device_encoder cpu --latent_dtype float16]
 
-Every device flag defaults to cuda (raises without a card); cpu on the
-CPU. Images keep their resolution, padded to the model's multiple.
+--device and --device_decoder default to cuda (raise without a card);
+--device_encoder defaults to cpu, the CPU edge of the split deployment,
+as in the JAX tool. Images keep their resolution, padded to the model's
+multiple.
 """
 
 import argparse
@@ -95,8 +97,7 @@ def load_autoencoder(cfg, checkpoint=None, from_dcae=None, seed=100
     return model.eval()
 
 
-@torch.no_grad()
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--data", type=str, required=True)
     p.add_argument("--checkpoint", type=str, default=None,
@@ -114,13 +115,20 @@ def main(argv=None):
                    help="g_a on --device_encoder, the latent shipped as "
                         "--latent_dtype, g_s on --device_decoder")
     add_device_flag(p, help_="joint mode's device:")
-    add_device_flag(p, "--device_encoder", "split mode's g_a device:")
+    # the CPU edge of the split deployment, as the JAX tool defaults it
+    p.add_argument("--device_encoder", type=str, default="cpu",
+                   help="split mode's g_a device: cpu (default) or cuda")
     add_device_flag(p, "--device_decoder", "split mode's g_s device:")
     p.add_argument("--latent_dtype", type=str, default="float16",
                    choices=list(LATENT_DTYPES),
                    help="the shipped latent's dtype in split mode")
     p.add_argument("--seed", type=int, default=100)
-    a = p.parse_args(argv)
+    return p
+
+
+@torch.no_grad()
+def main(argv=None):
+    a = parser().parse_args(argv)
 
     cfg = config(a.tiny, M=a.M)
     model = load_autoencoder(cfg, a.checkpoint, a.from_dcae, a.seed)

@@ -144,8 +144,9 @@ def run_training(opts: TrainOptions, cfg: Optional[DCAEConfig] = None,
     """Under a process group (parallel/multihost.initialize) the mesh
     spans its processes, one device each: dp = processes / opts.sp.
     opts.batch_size is the global batch and must split into equal dp
-    shards; with sp > 1 the patch height must meet the band rule
-    (parallel/spatial.py)."""
+    shards; with sp > 1 each patch's rows are cut into sp bands of whole
+    multiples of the band rule, which may differ by one multiple
+    (parallel/spatial.py: band_rows)."""
     # this process's device: its own card under a process group
     mesh = pmesh.make_mesh(sp=opts.sp, device=resolve_device(device))
     device = mesh.device

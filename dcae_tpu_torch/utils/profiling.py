@@ -5,6 +5,10 @@ torch.profiler:
                          the per-op table (op_stats.json) into logdir
   * op_stats(logdir)     device time by op type, by group, the longest ops
   * time_fn(fn, ...)     wall time with a full device sync, after warm-up
+  * device_ms(fn, iters) device time a call on the card (CUDA events),
+                         the host's enqueue time hidden behind a sleep
+  * sdpa_call(...)       one SDPA call on the windows of a wmsa input: the
+                         library yardstick of the window kernels
   * cost_analysis(...)   FLOPs (FlopCounterMode, plus each hand kernel's
                          registered count, which that counter cannot see)
                          and an estimate of the bytes the dispatched ops
@@ -133,6 +137,46 @@ def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 2) -> Dict:
         times.append(time.perf_counter() - t0)
     return {"median_s": float(np.median(times)),
             "best_s": float(np.min(times)), "times_s": times}
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device ms a call of fn over `iters` calls (CUDA events), queued
+    behind a sleep kernel that outlasts their enqueue, so that the host's
+    time to enqueue them does not count."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0     # bounds one call's enqueue
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # cycles at no more than 2 GHz: at least this many seconds
+    torch.cuda._sleep(int((2 * iters * call_s + 1e-3) * 2e9))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sdpa_call(x, rel, heads: int, shifted: bool):
+    """One SDPA call over the windows of x (random q / k / v of their
+    shape) with the same bias and shift mask."""
+    import torch.nn.functional as F
+    from dcae_tpu_torch.ops.kernels.wmsa_block import (
+        relative_position_bias, shifted_window_mask)
+
+    B, H, W, C = x.shape
+    nh, nw, hd = H // 8, W // 8, C // heads
+    q, k, v = (torch.randn((B, nh * nw, heads, 64, hd), device=x.device,
+                           dtype=x.dtype) for _ in range(3))
+    bias = relative_position_bias(rel.float())          # (heads, 64, 64)
+    if shifted:
+        mask = torch.as_tensor(shifted_window_mask(nh, nw), device=x.device)
+        bias = bias[None].masked_fill(mask[:, None], float("-inf"))[None]
+    bias = bias.to(x.dtype)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
 
 
 def cost_analysis(fn: Callable, *args) -> Dict:

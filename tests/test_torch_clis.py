@@ -330,6 +330,14 @@ def test_eval_autoencoder_joint_and_split(image_dir, ae_ckpt, tmp_path,
     assert abs(psnr(text) - psnr(joint)) < 0.1
 
 
+def test_eval_autoencoder_split_encoder_defaults_to_cpu():
+    """The split deployment's encoder is the CPU edge by default, as in
+    the JAX tool; the joint and decoder devices keep the card."""
+    a = eval_autoencoder.parser().parse_args(["--data", "d", "--split"])
+    assert (a.device_encoder, a.device_decoder, a.device) == \
+        ("cpu", "cuda", "cuda")
+
+
 def test_clis_refuse_cpu_fallback(image_dir, ckpts, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

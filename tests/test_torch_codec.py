@@ -121,8 +121,9 @@ def test_bin_parses_with_jax_container(codecs, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the training sub-packages included, and
-    chip_smoke, import neither jax nor anything of dcae_tpu."""
+    """Every module of the port, the training sub-packages and the tools
+    included, and chip_smoke, import neither jax nor anything of dcae_tpu
+    (nor the root tools or bench.py)."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import dcae_tpu_torch\n"
@@ -137,11 +138,16 @@ def test_port_imports_no_jax():
         "             'parallel.mesh', 'parallel.multihost',\n"
         "             'parallel.spatial',\n"
         "             'utils.profiling', 'utils.debug', 'tools.server',\n"
-        "             'tools.client', 'tools.eval_sharded'):\n"
+        "             'tools.client', 'tools.eval_sharded',\n"
+        "             'data.synthetic', 'data.downloader',\n"
+        "             'tools.validate_training', 'tools.rd_sweep_eval',\n"
+        "             'tools.lanes_ab', 'tools.profile_interleaved',\n"
+        "             'tools.bench_wmsa', 'tools.bench_link'):\n"
         "    assert 'dcae_tpu_torch.' + want in names, want\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'dcae_tpu' or m.startswith('dcae_tpu.')]\n"
+        "       or m == 'dcae_tpu' or m.startswith('dcae_tpu.')\n"
+        "       or m in ('bench', 'tools') or m.startswith('tools.')]\n"
         "print('modules', len(sys.modules))\n"
         "assert not bad, bad\n"
     )

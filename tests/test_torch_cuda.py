@@ -983,14 +983,22 @@ def test_sp_over_cards_equals_one_card(card, tmp_path, n):
     lr = 1e-4
     g_scale = max(float(np.abs(v).max()) for k, v in grads.items()
                   if not k.endswith(".k.bias"))
-    g = max(float(np.abs(got_grads[k] - v).max())
-            for k, v in grads.items() if not k.endswith(".k.bias"))
+    gaps = sorted(((float(np.abs(got_grads[k] - v).max()) / g_scale, k)
+                   for k, v in grads.items() if not k.endswith(".k.bias")),
+                  reverse=True)
+    g = gaps[0][0] * g_scale
     d = np.concatenate([np.abs(got[0][k] - v.detach().cpu().numpy()).ravel()
                         for k, v in model.state_dict().items()])
     p_max, p99 = float(d.max()) / lr, float(np.quantile(d, 0.99)) / lr
     print(f"sp = 2 over {n} cards (dp = {dp}) against the shards on one "
           f"card: gradients {g / g_scale:.3e} of the largest, parameters "
           f"{p_max:.3e} lr at most, 99% within {p99:.3e} lr")
+    # which parameters carry the gap: the five largest, of the largest
+    # gradient, beside the parameter's own largest gradient
+    print("largest gradient gaps: " + ", ".join(
+        f"{k} {gap:.3e} (own max "
+        f"{float(np.abs(grads[k]).max()) / g_scale:.3e})"
+        for gap, k in gaps[:5]))
     # the key biases (true gradient 0) are held with the parameters, as in
     # test_dp_over_cards_equals_one_card
     assert g / g_scale <= 1e-5

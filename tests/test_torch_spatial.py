@@ -7,6 +7,10 @@ the JAX package's sp forward and the one-process step, at the tiny config.
   partitioner's halos; tests/test_spatial_parallel.py), same weights, at
   atol 5e-6 / rtol 1e-5, and against the port's one-process forward;
   shard_eval_step with the row split equals the one-process eval step;
+- (a') uneven bands: sp = 4 on 192 rows (bands of 64, 64, 32, 32 image
+  rows) against the JAX package's sp = 4 forward at the same tolerances,
+  and its step-1 gradients within 1e-5 of the largest one-process
+  gradient;
 - (b) two training steps at sp = 2 and at dp = 2 x sp = 2 (4 ranks), with
   drift noise and the precision penalty, against the one-process steps on
   the global batch: step 1's gradients within 1e-5 of the largest
@@ -20,9 +24,9 @@ the JAX package's sp forward and the one-process step, at the tiny config.
   interior and last bands with their halos, cropped, equal the rows of
   the whole;
 - (e) the shape rules raise: make_mesh on an sp that does not divide the
-  world, run_bands on a height that breaks the band rule, a halo taller
-  than a band; and each layer's halo and the band multiple come from its
-  own geometry;
+  world, a height that breaks the band rule, a halo taller than the band
+  it comes from; band_rows; and each layer's halo and the band multiple
+  come from its own geometry;
 - (f) tools/train.py --sp 2 (one epoch) and tools/eval_sharded.py --sp 2
   under two gloo ranks: the epoch's checkpoint against the same epoch in
   one process, the eval summary against the one-process eval step.
@@ -76,16 +80,16 @@ def _write_png(path: str, rng, size) -> None:
         path)
 
 
-def _jax_forward(params, x: np.ndarray) -> dict:
+def _jax_forward(params, x: np.ndarray, sp: int) -> dict:
     """The JAX DCAE's forward with the batch sharded P('dp', 'sp') on the
-    (4, 2) virtual mesh: x_hat and the likelihoods."""
+    (8 / sp, sp) virtual mesh: x_hat and the likelihoods."""
     import jax
 
     from dcae_tpu.config import DCAEConfig as JaxConfig
     from dcae_tpu.models.dcae import DCAE as JaxDCAE
     from dcae_tpu.parallel.mesh import batch_sharding, make_mesh, replicated
 
-    mesh = make_mesh(8, sp=2)
+    mesh = make_mesh(8, sp=sp)
     model = JaxDCAE(JaxConfig.tiny())
     fwd = jax.jit(
         lambda p, x: model.apply({"params": p}, x, training=False),
@@ -100,10 +104,10 @@ def _jax_forward(params, x: np.ndarray) -> dict:
 
 @pytest.fixture(scope="module")
 def sp_run(tmp_path_factory):
-    """The inputs; then the ranks of sp = 2, of dp = 2 x sp = 2 and the
-    one-process epoch at once, and meanwhile the JAX sp = 2 forward.
-    Returns (workdir, {tag: rank json}, the JAX forward, rank 0's
-    output)."""
+    """The inputs; then the ranks of sp = 2, of dp = 2 x sp = 2, of sp = 4
+    and the one-process epoch at once, and meanwhile the JAX sp = 2 and
+    sp = 4 forwards. Returns (workdir, {tag: rank json}, {sp: the JAX
+    forward}, rank 0's output)."""
     from dcae_tpu.config import DCAEConfig as JaxConfig
     from dcae_tpu.utils.convert import convert_reference_state_dict
 
@@ -126,13 +130,19 @@ def sp_run(tmp_path_factory):
     x = np.random.default_rng(0).uniform(0, 1, (8, 128, 64, 3)).astype(
         np.float32)
     np.save(os.path.join(work, "x.npy"), x)
+    # sp = 4's: 192 rows, 3 pad multiples (bands of 2, 2, 1, 1 x 32 rows)
+    x192 = np.random.default_rng(1).uniform(0, 1, (8, 192, 64, 3)).astype(
+        np.float32)
+    np.save(os.path.join(work, "x192.npy"), x192)
 
     runs = [(2, 2, 0), (2, 2, 1), (4, 2, 0), (4, 2, 1), (4, 2, 2), (4, 2, 3),
-            (1, 1, 0)]
-    ports = {2: _free_port(), 4: _free_port(), 1: 0}
+            (4, 4, 0), (4, 4, 1), (4, 4, 2), (4, 4, 3), (1, 1, 0)]
+    ports = {(2, 2): _free_port(), (4, 2): _free_port(),
+             (4, 4): _free_port(), (1, 1): 0}
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "tests", "torch_sp_worker.py"),
-         str(ports[world]), str(world), str(sp), str(rank), work], cwd=ROOT,
+         str(ports[world, sp]), str(world), str(sp), str(rank), work],
+        cwd=ROOT,
         env={**os.environ, "OMP_NUM_THREADS": "1",
              "PYTHONHASHSEED": str(rank)},
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -141,7 +151,8 @@ def sp_run(tmp_path_factory):
         params = convert_reference_state_dict(
             {k: v.numpy() for k, v in model.state_dict().items()},
             JaxConfig.tiny())
-        jax_out = _jax_forward(params, x)
+        jax_out = {2: _jax_forward(params, x, 2),
+                   4: _jax_forward(params, x192, 4)}
         outs = [p.communicate(timeout=240)[0] for p in procs]
     except subprocess.TimeoutExpired:
         for p in procs:
@@ -168,9 +179,38 @@ def test_sp_forward_matches_jax_sp_forward(sp_run):
     work, _, want, _ = sp_run
     got = [np.load(os.path.join(work, f"w2s2r{r}_fwd.npz")) for r in (0, 1)]
     for k in ("x_hat", "y", "z"):
-        np.testing.assert_allclose(got[0][k], want[k], atol=5e-6, rtol=1e-5,
-                                   err_msg=k)
+        np.testing.assert_allclose(got[0][k], want[2][k], atol=5e-6,
+                                   rtol=1e-5, err_msg=k)
         assert np.array_equal(got[0][k], got[1][k]), k
+
+
+# ------------------------------------------------------------ (a') --
+
+def test_uneven_sp4_forward_matches_jax_sp4_forward(sp_run):
+    """192 rows over sp = 4: the JAX package's partitioner splits them, the
+    port's bands hold 64, 64, 32 and 32 rows."""
+    work, _, want, _ = sp_run
+    got = [np.load(os.path.join(work, f"w4s4r{r}_fwd.npz"))
+           for r in range(4)]
+    print("sp = 4 on 192 rows against the JAX sp = 4 forward, max|diff|: "
+          + ", ".join(f"{k} {np.abs(got[0][k] - want[4][k]).max():.3e}"
+                      for k in ("x_hat", "y", "z")))
+    for k in ("x_hat", "y", "z"):
+        np.testing.assert_allclose(got[0][k], want[4][k], atol=5e-6,
+                                   rtol=1e-5, err_msg=k)
+        assert all(np.array_equal(got[0][k], g[k]) for g in got[1:]), k
+
+
+def test_uneven_sp4_gradients_equal_one_process(sp_run):
+    """Step 1 at sp = 4 on 2 x 192x192 against one process on the same
+    batch: every gradient within 1e-5 of the largest."""
+    work = sp_run[0]
+    model, state, step = state_and_step(**TRAIN_KW)
+    step(state, torch.from_numpy(global_batch(2, 192)))
+    want = {k: p.grad.numpy() for k, p in model.named_parameters()}
+    gaps = [_within(dict(np.load(os.path.join(work, f"w4s4r{r}_grad.npz"))),
+                    want, 1e-5) for r in range(4)]
+    print(f"sp = 4 gradients against one process, of the largest: {gaps}")
 
 
 def test_shard_eval_step_with_and_without_the_row_split(sp_run):
@@ -212,13 +252,17 @@ def one_process_steps():
     return grads, params, metrics
 
 
-def _within(got: dict, want: dict, tol: float) -> None:
-    """Every tensor within tol of the largest magnitude of all of want."""
+def _within(got: dict, want: dict, tol: float) -> float:
+    """Every tensor within tol of the largest magnitude of all of want;
+    returns the largest difference over that magnitude."""
     assert got.keys() == want.keys()
     scale = max(float(np.abs(v).max()) for v in want.values())
+    worst = 0.0
     for k in want:
         diff = np.abs(np.asarray(got[k], np.float64) - want[k]).max()
         assert diff <= tol * scale, (k, diff / scale)
+        worst = max(worst, float(diff / scale))
+    return worst
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -340,11 +384,38 @@ def test_swin_blocks_on_haloed_bands(window, shifted):
 def test_shape_rules_raise(sp_run):
     rules = sp_run[1]["w2s2r0"]["rules"]
     assert "does not divide" in rules["make_mesh"]
-    assert "multiple of 32 * sp = 64" in rules["height"]
+    assert "multiple of 32 rows, at least 32 * sp = 64; got 80" in \
+        rules["height"]
     assert "exceeds a neighbour's band" in rules["halo"]
     with pytest.raises(ValueError, match="no sp axis"):
         with spatial.bands(pmesh.make_mesh(device="cpu")):
             pass
+
+
+@pytest.mark.parametrize("H,multiple,sp,want", [
+    (128, 32, 2, [64, 64]), (192, 32, 4, [64, 64, 32, 32]),
+    (384, 64, 4, [128, 128, 64, 64]), (640, 64, 4, [192, 192, 128, 128]),
+    (12, 2, 4, [4, 4, 2, 2])])
+def test_band_rows(H, multiple, sp, want):
+    """Whole multiples a band, the first H / multiple mod sp bands one
+    multiple taller; 192 and 640 rows at sp = 4 are heights the JAX sp
+    path runs and equal bands could not take."""
+    assert spatial.band_rows(H, multiple, sp) == want
+    for bad in (H + multiple // 2, multiple * (sp - 1)):
+        with pytest.raises(ValueError, match="sp band rule"):
+            spatial.band_rows(bad, multiple, sp)
+
+
+def test_halo_from_two_ranks_away_raises():
+    """A halo is held against the band it comes from, not the band that
+    asks: the 3-row halo below band 0 (64 rows) comes from band 1 (2
+    rows)."""
+
+    class _Mesh:
+        sp, sp_rank = 2, 0
+
+    with pytest.raises(ValueError, match="two ranks away"):
+        spatial.halo(torch.zeros(1, 64, 4, 1), 0, 3, _Mesh(), rows=[64, 2])
 
 
 @pytest.mark.parametrize("name,want", [

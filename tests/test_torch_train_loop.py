@@ -463,7 +463,7 @@ def test_tiny_training_converges(tmp_path):
     reduce the RD loss and bpp and move aux, and the val_real hook logs
     true entropy-coded metrics: tests/test_train_convergence.py for the
     port, on the same images and options."""
-    from tools.validate_training import make_dataset
+    from dcae_tpu_torch.data.synthetic import make_dataset
 
     data, save = str(tmp_path / "data"), str(tmp_path / "run")
     make_dataset(data, n_train=48, n_test=8, size=128)

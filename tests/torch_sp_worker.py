@@ -17,9 +17,12 @@ input's shard_eval_step metrics and its one-process eval step's, the
 adjoint checks of cut / gather / halo, the scalar check of the gradient
 rule, the shape rules' errors, tools/eval_sharded's summary and a
 tools/train epoch (checkpoints in <workdir>/ck_w<world>s<sp>). World 1
-runs only that epoch, the one-process reference. With "cuda" (one card a
-rank, NCCL) it takes the two steps alone, on the card config and a global
-batch of 2 x dp rows of 128x128.
+runs only that epoch, the one-process reference. The sp = 4 run of world
+4 takes uneven bands instead: _fwd.npz of <workdir>/x192.npy (192 rows:
+bands of 64, 64, 32 and 32 image rows) and _grad.npz of one step on a
+global batch of 2 x 192x192. With "cuda" (one card a rank, NCCL) it takes
+the two steps alone, on the card config and a global batch of 2 x dp rows
+of 128x128.
 """
 
 import json
@@ -43,11 +46,13 @@ def adjoints(mesh) -> dict:
     def rand(*shape):
         return torch.rand(shape, generator=gen, dtype=torch.float64)
 
+    rows = [4, 4]   # sp = 2
     out = {}
     for name, fn, shape in (
-            ("cut", lambda x: spatial.cut(x, mesh), (2, 8, 5, 3)),
-            ("gather", lambda x: spatial.gather(x, mesh), (2, 4, 5, 3)),
-            ("halo", lambda x: spatial.halo(x, 2, 1, mesh), (2, 4, 5, 3))):
+            ("cut", lambda x: spatial.cut(x, mesh, rows), (2, 8, 5, 3)),
+            ("gather", lambda x: spatial.gather(x, mesh, rows), (2, 4, 5, 3)),
+            ("halo", lambda x: spatial.halo(x, 2, 1, mesh, rows),
+             (2, 4, 5, 3))):
         x = rand(*shape).requires_grad_()
         y = fn(x)
         g = rand(*y.shape)
@@ -62,7 +67,7 @@ def adjoints(mesh) -> dict:
     whole = torch.Generator().manual_seed(12)
     x = torch.rand((2, 8, 4, 1), generator=whole, dtype=torch.float64)
     c = torch.rand((2, 8, 4, 1), generator=whole, dtype=torch.float64)
-    y = spatial.gather(a * spatial.cut(x, mesh) ** 2, mesh)
+    y = spatial.gather(a * spatial.cut(x, mesh, rows) ** 2, mesh, rows)
     (c * y).sum().backward()
     grad = a.grad.clone()
     pmesh.all_reduce_mean_([grad], mesh)
@@ -77,15 +82,31 @@ def shape_rules(mesh, model) -> dict:
     out = {}
     for name, fn in (
             ("make_mesh", lambda: pmesh.make_mesh(sp=3, device="cpu")),
-            ("height", lambda: model(torch.zeros(1, 96, 64, 3))),
+            ("height", lambda: model(torch.zeros(1, 80, 64, 3))),
             ("halo", lambda: spatial.halo(torch.zeros(1, 2, 4, 1), 3, 3,
-                                          mesh))):
+                                          mesh, [2, 2]))):
         try:
             with spatial.bands(mesh):
                 fn()
         except ValueError as e:
             out[name] = str(e)
     return out
+
+
+def forward(mesh, work: str, name: str) -> dict:
+    """The forward of <work>/weights.pt on <work>/<name> in row bands:
+    x_hat and the likelihoods."""
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.dcae import DCAE
+    from dcae_tpu_torch.parallel import spatial
+
+    model = DCAE(DCAEConfig.tiny())
+    model.load_state_dict(torch.load(os.path.join(work, "weights.pt")))
+    x = torch.from_numpy(np.load(os.path.join(work, name)))
+    with torch.no_grad(), spatial.bands(mesh):
+        r = model(x)
+    return {"x_hat": r["x_hat"].numpy(), "y": r["likelihoods"]["y"].numpy(),
+            "z": r["likelihoods"]["z"].numpy()}
 
 
 def main() -> None:
@@ -97,7 +118,7 @@ def main() -> None:
         os.path.abspath(__file__))))
     from dcae_tpu_torch.config import DCAEConfig
     from dcae_tpu_torch.models.dcae import DCAE
-    from dcae_tpu_torch.parallel import mesh as pmesh, multihost, spatial
+    from dcae_tpu_torch.parallel import mesh as pmesh, multihost
     from dcae_tpu_torch.tools import eval_sharded, train as train_cli
     from dcae_tpu_torch.train.step import make_eval_step
     from tests.torch_dp_common import (CFG, TRAIN_KW, card_config,
@@ -136,6 +157,19 @@ def main() -> None:
         train_epoch()
         return
 
+    if sp == 4:
+        np.savez(os.path.join(work, f"{tag}_fwd.npz"),
+                 **forward(mesh, work, "x192.npy"))
+        model, state, step = state_and_step(CFG, device, **TRAIN_KW)
+        pmesh.shard_train_step(step, mesh)(
+            state, torch.from_numpy(global_batch(2, 192)))
+        np.savez(os.path.join(work, f"{tag}_grad.npz"),
+                 **{k: p.grad.numpy() for k, p in model.named_parameters()})
+        with open(os.path.join(work, f"{tag}.json"), "w") as f:
+            json.dump(out, f)
+        torch.distributed.destroy_process_group()
+        return
+
     batch = global_batch(2 * mesh.dp, 128) if card else global_batch()
     local = torch.from_numpy(pmesh.shard_rows(batch, mesh)).to(device)
     model, state, step = state_and_step(
@@ -155,14 +189,11 @@ def main() -> None:
                 for k, v in model.state_dict().items()})
 
     if not card and world == 2:
+        np.savez(os.path.join(work, f"{tag}_fwd.npz"),
+                 **forward(mesh, work, "x.npy"))
         fwd = DCAE(DCAEConfig.tiny())
         fwd.load_state_dict(torch.load(os.path.join(work, "weights.pt")))
         x = torch.from_numpy(np.load(os.path.join(work, "x.npy")))
-        with torch.no_grad(), spatial.bands(mesh):
-            r = fwd(x)
-        np.savez(os.path.join(work, f"{tag}_fwd.npz"),
-                 x_hat=r["x_hat"].numpy(), y=r["likelihoods"]["y"].numpy(),
-                 z=r["likelihoods"]["z"].numpy())
         out["adjoints"] = adjoints(mesh)
         out["rules"] = shape_rules(mesh, fwd)
         # shard_eval_step (row split) and the eval step in one process
