@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, as the checks run it
     python3 chip_smoke.py --phase kernels
+    python3 chip_smoke.py --phase rans       # the lane coders alone
     python3 chip_smoke.py --phase train
     python3 chip_smoke.py --phase split
     python3 chip_smoke.py --phase serve
@@ -25,11 +26,16 @@ Phases, in order:
              plain version, forward and backward times, SDPA for the wmsa
              kernels (and the gradients of one bf16 call a kernel).
              The two lane-coder kernels (rans_lanes_decode /
-             rans_lanes_encode) code 5 chained slices
-             of 196,608 symbols on 512 lanes under the codec's Gaussian
-             bank and must equal their plain versions AND the C++ host
-             coder exactly; a flipped word or a bumped state must give
-             ok = false. Their yardstick is the host coder's time.
+             rans_lanes_encode, their row tables in shared memory) code 5
+             chained slices under the codec's Gaussian bank at batch 1, 2
+             and 8 of 768x512 (98,304 / 196,608 / 786,432 symbols on 256 /
+             512 / 1024 lanes) and on the wide kernels (2048 lanes), each on
+             symbols drawn over every row and over the 8 narrowest rows,
+             and must equal their plain versions AND the C++ host coder
+             exactly; a flipped word or a bumped state must give ok =
+             false. Each shape prints ms a slice, ns and SM cycles a step
+             (nvidia-smi's clocks.sm) and the shared memory each kernel
+             asks for. Their yardstick is the host coder's time.
   reference  the full-width f32 model on the card against the same weights
              on the CPU (plain versions), on a 128x128 image.
   slice      the full-size bf16 codec (seeded random weights) on 2
@@ -638,12 +644,14 @@ def train_kernel_rows(results: dict, gen) -> None:
         fail(f"training-shape kernel checks: {bad}")
 
 
-def draw_symbols(g, n: int, S: int, rng) -> tuple:
+def draw_symbols(g, n: int, S: int, rng, narrow: int = 0) -> tuple:
     """(symbols, indexes), (S, n) int32 each: a uniform CDF row per symbol
-    and the symbol drawn from that row's own quantized pmf (the escape
-    bucket's mass goes to the last in-range bucket)."""
+    (with `narrow`, one of the `narrow` narrowest rows, as a trained
+    model's latents mostly code) and the symbol drawn from that row's own
+    quantized pmf (the escape bucket's mass goes to the last in-range
+    bucket)."""
     rows = g.quantized_cdf.shape[0]
-    idx = rng.integers(0, rows, (S, n)).astype(np.int32)
+    idx = rng.integers(0, narrow or rows, (S, n)).astype(np.int32)
     slot = rng.integers(0, 1 << 16, (S, n))
     pos = np.empty((S, n), np.int64)
     for r in range(rows):
@@ -654,9 +662,38 @@ def draw_symbols(g, n: int, S: int, rng) -> tuple:
     return (pos + g.offset[idx]).astype(np.int32), idx
 
 
+def sm_clock_mhz(fn, seconds: float = 1.0) -> float:
+    """The median SM clock nvidia-smi reads while fn() runs back to back
+    for about `seconds` (a step's cycles are its ns times this clock)."""
+    import torch
+
+    mon = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        mon.terminate()
+        out, _ = mon.communicate(timeout=30)
+    clocks = [float(v) for v in out.split() if v.strip()]
+    return float(np.median(clocks)) if clocks else float("nan")
+
+
+# the lane coders' shapes: (batch of 768x512, lanes), the lanes
+# _auto_lanes picks at batch 1, 2 and 8, and the wide kernels at 2048; the
+# path's shape is batch 2
+RANS_SHAPES = [(1, 256), (2, RANS_LANES), (8, 1024), (8, 2048)]
+RANS_NARROW = 8        # the narrow draw's rows: the 8 narrowest
+
+
 def rans_phase() -> dict:
-    """The lane-coder kernels at the path's shape, chained over 5 slices,
-    against their plain versions and the C++ host coder: exact equality."""
+    """The lane-coder kernels at the path's shapes, chained over 5 slices,
+    against their plain versions and the C++ host coder: exact equality,
+    on drawn symbols and on a narrow-row draw, at K = 256, 512, 1024 and
+    (the wide kernels) 2048."""
     import torch
     from dcae_tpu_torch.config import DCAEConfig
     from dcae_tpu_torch.entropy import device_decode as dd
@@ -667,159 +704,182 @@ def rans_phase() -> dict:
     from dcae_tpu_torch.ops.kernels import rans_lanes as rl
 
     cfg = DCAEConfig()
-    n, S, K = RANS_N, RANS_SLICES, RANS_LANES
-    if (S, K) != (cfg.num_slices, _auto_lanes(n)):
-        fail(f"lane coders: the path codes {cfg.num_slices} slices on "
-             f"{_auto_lanes(n)} lanes, this phase {S} on {K}")
+    S = RANS_SLICES
+    n_img = RANS_N // BATCH
+    for B, K in RANS_SHAPES[:3]:
+        if (S, K) != (cfg.num_slices, _auto_lanes(B * n_img)):
+            fail(f"lane coders: the path codes {cfg.num_slices} slices of "
+                 f"{B * n_img} symbols on {_auto_lanes(B * n_img)} lanes, "
+                 f"this phase {S} on {K}")
     g = build_gaussian_table(
         get_scale_table(cfg.scales_min, cfg.scales_max, cfg.scales_levels),
         tail_mass=cfg.gc_tail_mass)
     tables = (g.quantized_cdf, g.cdf_length, g.offset)
-    sym, idx = draw_symbols(g, n, S, np.random.default_rng(5))
-
-    # the host coder: chained encode (last slice first), chained decode
-    t0 = time.perf_counter()
-    streams, st = [None] * S, None
-    for s in reversed(range(S)):
-        streams[s], st = rans.encode_interleaved(sym[s], idx[s], *tables, K,
-                                                 init_states=st)
-    host_enc_ms = (time.perf_counter() - t0) * 1e3
-    header = st.copy()
-    t0 = time.perf_counter()
-    cur = header
-    for s in range(S):
-        out, cur = rans.decode_interleaved_ref(streams[s], cur, idx[s],
-                                               *tables, K,
-                                               return_states=True)
-        if not np.array_equal(out, sym[s]):
-            fail("host coder does not decode its own stream")
-    host_dec_ms = (time.perf_counter() - t0) * 1e3
-    n_words = np.array([len(b) // 2 for b in streams], np.int32)
-
     dev = "cuda"
-    enc_sf, offs, maxpos, stride = dd.enc_tables_to_device(
-        dd.build_enc_tables(*tables), dev)
-    idx_d = torch.from_numpy(idx).to(dev)
-    pos_d = torch.from_numpy(sym - g.offset[idx]).to(dev)
-    in_range = torch.ones((S, n), dtype=torch.bool, device=dev)
+    offs_d, table_d = dd.row_tables_to_device(dd.build_row_tables(*tables),
+                                              dev)
+    rng = np.random.default_rng(5)
 
-    def encode_chain(fn):
-        res, state = [None] * S, None
+    def one_case(B: int, K: int, narrow: int, main: bool) -> dict:
+        n = B * n_img
+        sym, idx = draw_symbols(g, n, S, rng, narrow)
+        # the host coder: chained encode (last slice first), chained decode
+        t0 = time.perf_counter()
+        streams, st = [None] * S, None
         for s in reversed(range(S)):
-            res[s] = fn(pos_d[s], idx_d[s], in_range[s], enc_sf, stride, K,
-                        state)
-            state = res[s][2]
-        return res
-
-    got = encode_chain(rl.rans_lanes_encode)
-    want = encode_chain(rl.rans_lanes_encode_ref)
-    torch.cuda.synchronize()
-    enc_ok = True
-    for s in range(S):
-        (w, nw, st_k, esc), (w_p, nw_p, st_p, esc_p) = got[s], want[s]
-        enc_ok &= bool(torch.equal(w, w_p) and torch.equal(nw, nw_p)
-                       and torch.equal(st_k, st_p)
-                       and torch.equal(esc, esc_p) and not bool(esc))
-        enc_ok &= int(nw) == n_words[s] and \
-            rl.to_u16(w)[:int(nw)][::-1].tobytes() == streams[s]
-    enc_ok &= np.array_equal(rl.to_u32(got[0][2]), header)
-    # an out-of-range mark on one symbol must raise the escape flag
-    marked = in_range[0].clone()
-    marked[n // 3] = False
-    esc_k = rl.rans_lanes_encode(pos_d[0], idx_d[0], marked, enc_sf, stride,
-                                 K)[3]
-    enc_ok &= bool(esc_k)
-
-    words = np.zeros((S, int(n_words.max()) + 1000), np.uint16)   # padded
-    for s in range(S):
-        words[s, :n_words[s]] = np.frombuffer(streams[s], np.uint16)
-    words_d = torch.from_numpy(words.view(np.int16)).to(dev)
-    nw_d = torch.from_numpy(n_words).to(dev)
-    header_d = rl.u32_bits(header, dev)
-    luts = {p: dd.slot_tables_to_device(
-        dd.build_slot_tables(*tables, paired=p), dev) for p in (True, False)}
-
-    def decode_chain(fn, paired=True, words_d=words_d, start=header_d):
-        res, state = [], start
+            streams[s], st = rans.encode_interleaved(sym[s], idx[s], *tables,
+                                                     K, init_states=st)
+        host_enc_ms = (time.perf_counter() - t0) * 1e3
+        header = st.copy()
+        t0 = time.perf_counter()
+        cur = header
         for s in range(S):
-            res.append(fn(words_d[s], nw_d[s], state, idx_d[s],
-                          *luts[paired], K, paired, s == S - 1))
-            state = res[-1][2]
-        return res
+            out, cur = rans.decode_interleaved_ref(streams[s], cur, idx[s],
+                                                   *tables, K,
+                                                   return_states=True)
+            if not np.array_equal(out, sym[s]):
+                fail("host coder does not decode its own stream")
+        host_dec_ms = (time.perf_counter() - t0) * 1e3
+        n_words = np.array([len(b) // 2 for b in streams], np.int32)
 
-    def all_ok(res) -> bool:
-        return all(bool(r[1]) for r in res)
+        idx_d = torch.from_numpy(idx).to(dev)
+        pos_d = torch.from_numpy(sym - g.offset[idx]).to(dev)
+        in_range = torch.ones((S, n), dtype=torch.bool, device=dev)
 
-    sym_d = torch.from_numpy(sym).to(dev)
-    dec_ok = True
-    for paired in (True, False):
-        got_d = decode_chain(rl.rans_lanes_decode, paired)
-        want_d = decode_chain(rl.rans_lanes_decode_ref, paired)
+        def encode_chain(fn):
+            res, state = [None] * S, None
+            for s in reversed(range(S)):
+                res[s] = fn(pos_d[s], idx_d[s], in_range[s], table_d, K,
+                            state)
+                state = res[s][2]
+            return res
+
+        got = encode_chain(rl.rans_lanes_encode)
+        want = encode_chain(rl.rans_lanes_encode_ref)
         torch.cuda.synchronize()
+        enc_ok = True
+        for s in range(S):
+            (w, nw, st_k, esc), (w_p, nw_p, st_p, esc_p) = got[s], want[s]
+            enc_ok &= bool(torch.equal(w, w_p) and torch.equal(nw, nw_p)
+                           and torch.equal(st_k, st_p)
+                           and torch.equal(esc, esc_p) and not bool(esc))
+            enc_ok &= int(nw) == n_words[s] and \
+                rl.to_u16(w)[:int(nw)][::-1].tobytes() == streams[s]
+        enc_ok &= np.array_equal(rl.to_u32(got[0][2]), header)
+        # an out-of-range mark on one symbol must raise the escape flag
+        marked = in_range[0].clone()
+        marked[n // 3] = False
+        enc_ok &= bool(rl.rans_lanes_encode(pos_d[0], idx_d[0], marked,
+                                            table_d, K)[3])
+
+        words = np.zeros((S, int(n_words.max()) + 1000), np.uint16)  # padded
+        for s in range(S):
+            words[s, :n_words[s]] = np.frombuffer(streams[s], np.uint16)
+        words_d = torch.from_numpy(words.view(np.int16)).to(dev)
+        nw_d = torch.from_numpy(n_words).to(dev)
+        header_d = rl.u32_bits(header, dev)
+
+        def decode_chain(fn, words_d=words_d, start=header_d):
+            res, state = [], start
+            for s in range(S):
+                res.append(fn(words_d[s], nw_d[s], state, idx_d[s], offs_d,
+                              table_d, K, s == S - 1))
+                state = res[-1][2]
+            return res
+
+        def all_ok(res) -> bool:
+            return all(bool(r[1]) for r in res)
+
+        got_d = decode_chain(rl.rans_lanes_decode)
+        want_d = decode_chain(rl.rans_lanes_decode_ref)
+        torch.cuda.synchronize()
+        dec_ok = all_ok(got_d) and bool((got_d[-1][2] == rl.RANS_L16).all())
         for s in range(S):
             dec_ok &= all(bool(torch.equal(a, b))
                           for a, b in zip(got_d[s], want_d[s]))
-            dec_ok &= bool(torch.equal(got_d[s][0], sym_d[s]))
-        dec_ok &= all_ok(got_d) and bool(
-            (got_d[-1][2] == rl.RANS_L16).all())
-    flipped = words_d.clone()
-    flipped[2, 50] ^= -1
-    bumped = header_d.clone()
-    bumped[0] += 1
-    corrupt_found = not all_ok(decode_chain(rl.rans_lanes_decode,
-                                            words_d=flipped)) \
-        and not all_ok(decode_chain(rl.rans_lanes_decode, start=bumped))
+            dec_ok &= np.array_equal(got_d[s][0].cpu().numpy(), sym[s])
+        flipped = words_d.clone()
+        flipped[2, 50] ^= -1
+        # every lane's state one up: a single lane's may go unseen, where
+        # x and x + 1 fall in two one-slot buckets and step to one state
+        bumped = header_d + 1
+        corrupt_found = not all_ok(decode_chain(rl.rans_lanes_decode,
+                                                words_d=flipped)) \
+            and not all_ok(decode_chain(rl.rans_lanes_decode, start=bumped))
 
-    # one run of the path = the chain of 5 launches; a slice = a fifth
-    enc_ms = time_ms(lambda: encode_chain(rl.rans_lanes_encode))
-    dec_ms = time_ms(lambda: decode_chain(rl.rans_lanes_decode))
-    enc_plain = time_ms(lambda: encode_chain(rl.rans_lanes_encode_ref),
-                        iters=1, warmup=0)
-    dec_plain = time_ms(lambda: decode_chain(rl.rans_lanes_decode_ref),
-                        iters=1, warmup=0)
-    total_words = int(n_words.sum())
-    # bytes a slice, each input read once and each output written once:
-    # the stream's words (what this run's symbols need, not the buffer),
-    # 4 n of indexes, 4 n of symbols or positions, the encoder's n flags,
-    # K states in and K out, and of the lookup table the entries the n
-    # symbols touch or the whole table, whichever is less
-    stream_bytes = 2 * total_words / S
-    dec_table = min(8 * n, 4 * luts[True][1].numel())
-    enc_table = min(4 * n, 4 * enc_sf.numel())
-    dec_bytes = stream_bytes + 8 * n + dec_table + 8 * K
-    enc_bytes = stream_bytes + 9 * n + enc_table + 8 * K
-    rows = {}
-    for name, ok, ms, plain, host, nbytes in (
-            ("rans_lanes_decode", dec_ok and corrupt_found, dec_ms,
-             dec_plain, host_dec_ms, dec_bytes),
-            ("rans_lanes_encode", enc_ok, enc_ms, enc_plain, host_enc_ms,
-             enc_bytes)):
-        b_ms = nbytes / H100_BYTES_PER_S * 1e3
-        row = {"case": f"n={n} K={K} x{S} chained", "rel_err": 0.0,
-               "max_abs_err": 0.0, "tol": 0.0, "ok": bool(ok),
-               "main_path": True, "per_run": S, "ms": ms / S,
-               "plain_ms": plain / S, "library_ms": None,
-               "host_coder_ms": host / S, "bound_ms": b_ms,
-               "bound_by": "bytes", "bound_bytes": nbytes,
-               "bound_share": b_ms / (ms / S),
-               "chain_steps": -(-n // K),
-               "bits_per_symbol": 16 * total_words / (S * n)}
-        print(f"{name} {row['case']}: exact vs plain and host coder "
-              f"{row['ok']}, ms a slice {row['ms']:.4f} plain "
-              f"{row['plain_ms']:.1f} host C++ coder "
-              f"{row['host_coder_ms']:.3f} bound {b_ms:.5f} (bytes; a chain "
-              f"of {row['chain_steps']} steps) "
-              f"{row['bits_per_symbol']:.2f} bits a symbol", flush=True)
-        rows[name] = [row]
-    if not dec_ok:
-        fail("rans_lanes_decode differs from its plain version or the host "
-             "coder")
-    if not corrupt_found:
-        fail("rans_lanes_decode: a flipped word or bumped state kept ok")
-    if not enc_ok:
-        fail("rans_lanes_encode differs from its plain version or the host "
-             "coder")
-    return rows
+        # one run of the path = the chain of 5 launches; a slice = a fifth
+        enc_ms = time_ms(lambda: encode_chain(rl.rans_lanes_encode)) / S
+        dec_ms = time_ms(lambda: decode_chain(rl.rans_lanes_decode)) / S
+        enc_plain = dec_plain = None
+        if main:
+            enc_plain = time_ms(lambda: encode_chain(rl.rans_lanes_encode_ref),
+                                iters=1, warmup=0) / S
+            dec_plain = time_ms(lambda: decode_chain(rl.rans_lanes_decode_ref),
+                                iters=1, warmup=0) / S
+        mhz = sm_clock_mhz(lambda: (encode_chain(rl.rans_lanes_encode),
+                                    decode_chain(rl.rans_lanes_decode)))
+        total_words = int(n_words.sum())
+        steps = -(-n // K)
+        # bytes a slice, each input read once and each output written once:
+        # the stream's words (what this run's symbols need, not the
+        # buffer), 4 n of indexes, 4 n of symbols or positions, the
+        # encoder's n flags, K states in and K out, and the row table
+        stream_bytes = 2 * total_words / S
+        tab_bytes = table_d.numel() * 4
+        label = (f"B={B} n={n} K={K} x{S} chained "
+                 f"{'narrow' if narrow else 'drawn'}")
+        rows = {}
+        for name, ok, ms, plain, host, nbytes, kind in (
+                ("rans_lanes_decode", dec_ok and corrupt_found, dec_ms,
+                 dec_plain, host_dec_ms / S,
+                 stream_bytes + 8 * n + tab_bytes + 8 * K, "decode"),
+                ("rans_lanes_encode", enc_ok, enc_ms, enc_plain,
+                 host_enc_ms / S,
+                 stream_bytes + 9 * n + tab_bytes + 8 * K, "encode")):
+            b_ms = nbytes / H100_BYTES_PER_S * 1e3
+            step_ns = ms * 1e6 / steps
+            row = {"case": label, "rel_err": 0.0, "max_abs_err": 0.0,
+                   "tol": 0.0, "ok": bool(ok), "main_path": main,
+                   "per_run": S if main else 0, "ms": ms,
+                   "plain_ms": plain, "library_ms": None,
+                   "host_coder_ms": host, "bound_ms": b_ms,
+                   "bound_by": "bytes", "bound_bytes": nbytes,
+                   "bound_share": b_ms / ms, "chain_steps": steps,
+                   "step_ns": step_ns, "sm_clock_mhz": mhz,
+                   "step_cycles": step_ns * mhz / 1e3,
+                   "smem_bytes": rl.smem_bytes(kind, table_d, K,
+                                               offs_d.numel()),
+                   "bits_per_symbol": 16 * total_words / (S * n)}
+            plain_text = "" if plain is None else f" plain {plain:.1f}"
+            print(f"{name} {label}: exact vs plain and host coder "
+                  f"{row['ok']}, ms a slice {ms:.4f}{plain_text} host C++ "
+                  f"coder {host:.3f} bound {b_ms:.5f} (bytes); a chain of "
+                  f"{steps} steps, {step_ns:.1f} ns = "
+                  f"{row['step_cycles']:.0f} SM cycles a step at {mhz:.0f} "
+                  f"MHz (nvidia-smi clocks.sm); shared memory "
+                  f"{row['smem_bytes']} B; {row['bits_per_symbol']:.2f} "
+                  "bits a symbol", flush=True)
+            rows[name] = row
+        if not dec_ok:
+            fail(f"rans_lanes_decode {label}: differs from its plain "
+                 "version or the host coder")
+        if not corrupt_found:
+            fail(f"rans_lanes_decode {label}: a flipped word or bumped "
+                 "state kept ok")
+        if not enc_ok:
+            fail(f"rans_lanes_encode {label}: differs from its plain "
+                 "version or the host coder")
+        return rows
+
+    print(f"lane coders: row table {table_d.numel() * 4} B "
+          f"({g.quantized_cdf.shape[0]} rows)", flush=True)
+    results = {"rans_lanes_decode": [], "rans_lanes_encode": []}
+    for B, K in RANS_SHAPES:
+        for narrow in (0, RANS_NARROW):
+            main = (B, K, narrow) == (BATCH, RANS_LANES, 0)
+            for name, row in one_case(B, K, narrow, main).items():
+                results[name].append(row)
+    return results
 
 
 def kernel_summary(results: dict, launches: dict,
@@ -867,6 +927,8 @@ def kernel_summary(results: dict, launches: dict,
                                           "tf32x3_ceiling_ms",
                                           "least_share", "bitwise_repeat",
                                           "host_coder_ms", "chain_steps",
+                                          "step_ns", "step_cycles",
+                                          "sm_clock_mhz", "smem_bytes",
                                           "bound_bytes",
                                           "bits_per_symbol", "train",
                                           "per_step", "backward_ms",
@@ -1435,13 +1497,39 @@ def profile_train_step() -> None:
     print(f"profile train step: unprofiled steps {free} ms", flush=True)
 
 
+def interleaved_memory(codec, encode, decode) -> None:
+    """The interleaved pair's peak device memory, and the bytes of the lane
+    coders' tables the codec holds for it beside those of the slot and
+    enc_sf tables (build_slot_tables, paired, and build_enc_tables) that
+    the codec held on the device before the row tables."""
+    import torch
+    from dcae_tpu_torch.entropy import device_decode as dd
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    decode(encode())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    (offs, table), (_, _, maxpos, _) = codec._lane_luts()
+    tables = sum(t.numel() * t.element_size() for t in (offs, table, maxpos))
+    g = codec._require_tables().gaussian
+    cdfs = (g.quantized_cdf, g.cdf_length, g.offset)
+    earlier = sum(a.nbytes for a in (*dd.build_slot_tables(*cdfs, paired=True),
+                                     *dd.build_enc_tables(*cdfs)[:3]))
+    print(f"interleaved pair: peak device memory {peak} B ({held} B held "
+          f"before it); the lane tables on the device {tables} B, where "
+          f"the slot and enc_sf tables held {earlier} B", flush=True)
+
+
 def profile_phase() -> None:
     """Where one compress + decompress of the slice spends device time:
     torch.profiler over a warm run, kernels summed by name, and the share
     of the wall time the device was busy. Three pairs on the same codec:
     the staged encoder with the per-slice decoder, the one-fetch encoder
     (compress_with_indexes) with the shipped-index decoder, and the
-    interleaved profile (compress_device, decompress_interleaved)."""
+    interleaved profile (compress_device, decompress_interleaved), whose
+    peak device memory follows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from dcae_tpu_torch.config import DCAEConfig
@@ -1479,6 +1567,8 @@ def profile_phase() -> None:
         print_device_profile(
             prof, label, wall, f"compress+decompress of {BATCH} images "
             f"(compress {t_enc * 1e3:.1f} ms)")
+    interleaved_memory(codec, *pairs[
+        "compress_device + decompress_interleaved"])
     codec.close()
     del codec
     torch.cuda.empty_cache()
@@ -3610,12 +3700,14 @@ def validate_phase() -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "reference",
-                                        "slice", "train", "split",
+    ap.add_argument("--phase", choices=("all", "kernels", "rans",
+                                        "reference", "slice", "train",
+                                        "split",
                                         "serve", "sp", "tools", "profile",
                                         "bands", "validate"),
                     default="all",
-                    help="one phase only; profile (not part of all) traces "
+                    help="one phase only; rans: the lane coders' part of "
+                    "kernels alone; profile (not part of all) traces "
                     "the slice with torch.profiler; bands (not part of all) "
                     "times the bf16 conv_glu under three band sizes; "
                     "validate (not part of all) trains three checkpoints "
@@ -3660,6 +3752,8 @@ def main() -> int:
     slice_res = None
     if args.phase in ("all", "kernels"):
         results = kernel_phase(gen)
+    if args.phase == "rans":
+        print(json.dumps({"rans": rans_phase()}))
     if args.phase in ("all", "reference"):
         reference_phase()
     if args.phase in ("all", "slice"):

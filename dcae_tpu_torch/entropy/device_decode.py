@@ -6,8 +6,10 @@ the symbols back. This module codes the interleaved stream format
 (native/rans.cpp `dcae_rans_encode_interleaved`) where the tensors live:
 
   * K lanes advance in lock step, one symbol a lane a step;
-  * the slot -> (symbol, start, freq) search is a flat device-resident
-    table gather (rows x 2^16 entries, built once per table bake);
+  * the slot -> (symbol, start, freq) search reads compact row tables
+    (build_row_tables: a word a bucket and a coarse index of 256-slot
+    cells a row, ~139 KB for the 64-row Gaussian bank, built once per
+    table bake), which the kernels hold in shared memory;
   * the lanes share ONE word stream: which lanes renorm in a step is a
     mask, and a lane's word sits at ptr + (renorming lanes before it), the
     positions the encoder's reversed round-robin emitted.
@@ -15,10 +17,13 @@ the symbols back. This module codes the interleaved stream format
 The two loops run in ops/kernels/rans_lanes.py: CUDA kernels for CUDA
 tensors, the plain PyTorch statement for CPU tensors. Here are the table
 builders (numpy, byte-equal to the JAX package's), the format's functions
-with the JAX package's names and argument order, and the escape-patch side
-channel. The decoder returns an `ok` flag (the stream was consumed exactly
-AND every lane is back at the encoder's initial state 2^16): an end-to-end
-checksum for free.
+with the JAX package's names and argument order (the row tables take the
+places of the JAX package's slot and enc_sf tables), and the escape-patch
+side channel. build_slot_tables and build_enc_tables stay as the JAX
+package's counterparts: the row tables are held against them. The decoder
+returns an `ok` flag (the stream was consumed exactly AND every lane is
+back at the encoder's initial state 2^16): an end-to-end checksum for
+free.
 
 Unsigned quantities are carried as signed tensors with the same bits
 (lane states and table words int32, stream words int16; see
@@ -38,7 +43,8 @@ import numpy as np
 import torch
 
 from dcae_tpu_torch.ops.kernels.rans_lanes import (  # noqa: F401
-    RANS_L16, SLOTS, rans_lanes_decode, rans_lanes_encode, u16_bits, u32_bits)
+    RANS_L16, SLOTS, build_row_tables, rans_lanes_decode, rans_lanes_encode,
+    u16_bits, u32_bits)
 
 
 def build_slot_tables(cdfs, cdf_lengths, offsets, paired: bool = False
@@ -118,19 +124,19 @@ def build_enc_tables(cdfs, cdf_lengths, offsets
             stride)
 
 
-def slot_tables_to_device(tables, device) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
-    """build_slot_tables' pair as int32 tensors (uint32 bits) on `device`."""
-    a, b = tables
-    return u32_bits(a, device), u32_bits(b, device).contiguous()
+def row_tables_to_device(tables, device) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """build_row_tables' pair as int32 tensors (uint32 bits) on `device`:
+    (row offsets, table)."""
+    offs, table = tables
+    return u32_bits(offs, device), u32_bits(table, device).contiguous()
 
 
-def enc_tables_to_device(tables, device):
-    """build_enc_tables' tuple with the arrays as int32 tensors on
-    `device`: (enc_sf, offsets, maxpos, stride)."""
-    enc_sf, offs, maxpos, stride = tables
-    return (u32_bits(enc_sf, device), torch.as_tensor(offs).to(device),
-            torch.as_tensor(maxpos).to(device), int(stride))
+def enc_bounds(cdf_lengths) -> Tuple[np.ndarray, int]:
+    """build_enc_tables' (maxpos, stride) without its table: the in-range
+    buckets a row (length - 2) and the row stride (the longest length)."""
+    lengths = np.asarray(cdf_lengths, np.int64).reshape(-1)
+    return (lengths - 2).astype(np.int32), int(lengths.max())
 
 
 def row_offset_bcast(indexes: torch.Tensor, offsets: torch.Tensor
@@ -149,7 +155,7 @@ def _scalar_i32(v, device) -> torch.Tensor:
 
 
 def _decode(words, n_words, states, indexes, lut_sym, lut_df, lanes: int,
-            unroll: int, paired: bool, check_base: bool):
+            unroll: int, check_base: bool):
     if int(unroll) < 1:
         raise ValueError(f"unroll {unroll}")
     dev = indexes.device
@@ -158,8 +164,8 @@ def _decode(words, n_words, states, indexes, lut_sym, lut_df, lanes: int,
         _scalar_i32(n_words, dev),
         u32_bits(states, dev).reshape(-1).contiguous(),
         indexes.reshape(-1).to(torch.int32).contiguous(),
-        u32_bits(lut_sym, dev), u32_bits(lut_df, dev), int(lanes),
-        bool(paired), check_base)
+        u32_bits(lut_sym, dev), u32_bits(lut_df, dev).contiguous(),
+        int(lanes), check_base)
 
 
 def decode_interleaved(words, n_words, states, indexes, lut_sym, lut_df,
@@ -170,12 +176,13 @@ def decode_interleaved(words, n_words, states, indexes, lut_sym, lut_df,
     words: (W,) uint16 bits (W >= n_words; padding ignored); n_words: the
     true word count (int or () tensor); states: (lanes,) uint32 bits, the
     decode-start states; indexes: (n,) int CDF row per symbol in stream
-    order; lut_sym / lut_df: build_slot_tables' pair in the layout
-    `paired` names. unroll (symbols a lane per loop iteration in the JAX
-    package) changes nothing here. Returns (symbols (n,) int32, ok ()
-    bool)."""
+    order; lut_sym / lut_df: build_row_tables' pair (row offsets, table),
+    where the JAX package takes build_slot_tables' pair. unroll (symbols a
+    lane per loop iteration in the JAX package) and paired (its slot
+    tables' layout) change nothing here. Returns (symbols (n,) int32, ok
+    () bool)."""
     syms, ok, _ = _decode(words, n_words, states, indexes, lut_sym, lut_df,
-                          lanes, unroll, paired, True)
+                          lanes, unroll, True)
     return syms, ok
 
 
@@ -191,14 +198,16 @@ def decode_interleaved_chain(words, n_words, states, indexes, lut_sym,
     the LAST slice equal the 2^16 base. Returns (symbols, ok_stream,
     final_states (K,) int32 bits)."""
     return _decode(words, n_words, states, indexes, lut_sym, lut_df, lanes,
-                   unroll, paired, False)
+                   unroll, False)
 
 
 def encode_interleaved_device(symbols, indexes, enc_sf, offsets, maxpos,
                               stride: int, lanes: int, unroll: int = 1):
     """K-lane interleaved rANS ENCODE on the device, bit-identical to the
     C++ encoder's streams. symbols / indexes: (n,) int in stream order;
-    enc_sf, offsets, maxpos, stride: build_enc_tables' tuple.
+    enc_sf: build_row_tables' table (where the JAX package takes
+    build_enc_tables' enc_sf); offsets, maxpos, stride: build_enc_tables'
+    other three (enc_bounds gives the last two).
 
     Returns (words (n + 1,) int16 (uint16 bits) in EMISSION order (the
     byte stream is the reversed prefix words[:n_words]), n_words () int32,
@@ -225,14 +234,15 @@ def _encode_core(pos_c, idx1, in_range, enc_sf, stride: int, K: int,
     the patch list (encode_slices_with_patches) do not look the rows up
     twice. init_states (K,) uint32 bits: the lane states to start from;
     the chained format feeds slice s+1's final encode states in as slice
-    s's; None = the 2^16 base. U is the JAX loop's unroll and changes
-    nothing."""
+    s's; None = the 2^16 base. enc_sf: build_row_tables' table. U is the
+    JAX loop's unroll and changes nothing, and so does stride here (a
+    position past a row's buckets reads as none)."""
     dev = idx1.device
     return rans_lanes_encode(
         pos_c.reshape(-1).to(torch.int32).contiguous(),
         idx1.reshape(-1).to(torch.int32).contiguous(),
         in_range.reshape(-1).to(torch.bool).contiguous(),
-        enc_sf, int(stride), int(K),
+        enc_sf, int(K),
         None if init_states is None
         else u32_bits(init_states, dev).reshape(-1).contiguous())
 

@@ -163,8 +163,7 @@ class DCAECodec:
         self.patch_cap = int(patch_cap)
         # device-resident tables of the interleaved profile, rebuilt when
         # the coding tables change: (tables they were built from, value)
-        self._slot_dev = (None, None)         # (tables, luts)
-        self._enc_lut_dev = (None, None)
+        self._lane_dev = (None, None)         # (tables, (decode, encode))
         self._medians_host = (None, None)     # (tables, numpy medians)
 
     def close(self) -> None:
@@ -600,35 +599,32 @@ class DCAECodec:
 
     # ------------------------------------------------ interleaved profile --
 
-    def _slot_luts(self):
-        """Device-resident slot tables of the lane decoder, in the paired
-        layout (row offsets, (df, bucket position) pairs; 32 MB for the
-        64-row Gaussian bank); built once per table bake. Both layouts give
-        the same symbols, so every stream decodes from this one, whatever
-        layout its container names."""
+    def _lane_luts(self):
+        """Device-resident row tables of the lane coders, built once per
+        table bake (~139 KB for the 64-row Gaussian bank): the decoder's
+        (row offsets, table) and the encoder's (table, offsets, maxpos,
+        stride), one table for both."""
         t = self._require_tables()
-        src, luts = self._slot_dev
+        src, luts = self._lane_dev
         if src is not t:
             g = t.gaussian
-            luts = device_decode.slot_tables_to_device(
-                device_decode.build_slot_tables(
-                    g.quantized_cdf, g.cdf_length, g.offset, paired=True),
-                self.device)
-            self._slot_dev = (t, luts)
+            offs, table = device_decode.row_tables_to_device(
+                device_decode.build_row_tables(
+                    g.quantized_cdf, g.cdf_length, g.offset), self.device)
+            maxpos, stride = device_decode.enc_bounds(g.cdf_length)
+            luts = ((offs, table), (table, offs, torch.from_numpy(
+                maxpos).to(self.device), stride))
+            self._lane_dev = (t, luts)
         return luts
 
+    def _slot_luts(self):
+        """The lane decoder's tables. Streams of either layout that their
+        container names (paired or not) decode from these."""
+        return self._lane_luts()[0]
+
     def _enc_luts(self):
-        """Device-resident encode-side tables of the profile: (enc_sf,
-        offsets, maxpos, stride); built once per table bake."""
-        t = self._require_tables()
-        src, luts = self._enc_lut_dev
-        if src is not t:
-            g = t.gaussian
-            luts = device_decode.enc_tables_to_device(
-                device_decode.build_enc_tables(
-                    g.quantized_cdf, g.cdf_length, g.offset), self.device)
-            self._enc_lut_dev = (t, luts)
-        return luts
+        """The lane encoder's tables: (table, offsets, maxpos, stride)."""
+        return self._lane_luts()[1]
 
     def compress_device(self, x, lanes: Optional[int] = None,
                         chain: bool = True, unroll: int = 2,

@@ -7,7 +7,10 @@ Counterparts of the two XLA loops of the JAX package
 csrc/rans_lanes.cu (one launch a call, counted) or raise; on CPU tensors
 they run `rans_lanes_decode_ref` / `rans_lanes_encode_ref`, the plain
 PyTorch statement: the lanes as a vector, a Python loop over the T =
-ceil(n / K) steps, the JAX loop body op for op.
+ceil(n / K) steps, the JAX loop body op for op. Both read the row tables
+of `build_row_tables` (a word a bucket and a coarse index a row, small
+enough for a block's shared memory), where the JAX package reads 2^16-slot
+tables; the plain versions find a bucket with searchsorted.
 
 Storage types. Torch has little arithmetic on unsigned types, so the
 unsigned quantities cross this module as signed tensors holding the same
@@ -102,38 +105,136 @@ def _rows(indexes: torch.Tensor, lanes: int):
     return T, idx.view(T, lanes), active.view(T, lanes)
 
 
+# ---------------------------------------------------------- row tables --
+# The tables both kernels read, built once per table bake and held whole in
+# a launch's shared memory (csrc/rans_lanes.cu): uint32 words
+#   [0, 4)              rows, coarse_off, words_off, total (in words);
+#   [4, 4 + 2 rows)     each row's (base, nb): its first bucket word (from
+#                       words_off) and its bucket count (cdf length - 1);
+#   from coarse_off     COARSE uint16 a row: entry c < 256 the bucket of
+#                       slot 256 c, entry 256 that of slot 2^16 - 1, as the
+#                       bucket's word index from words_off;
+#   from words_off      a word a bucket: start + (freq - 1) << 16, mod 2^32.
+# The decode slot table's df word for slot s in bucket b is s - start |
+# (freq - 1) << 16; the encode table's start | freq << 16 is the word +
+# 2^16, bit for bit, the wrap of a single bucket's freq of 2^16 to 0 and of
+# a trailing zero-width bucket's start of 2^16 into the freq field included.
+CELL_SHIFT = 8                       # 256 slots a coarse cell
+COARSE = (SLOTS >> CELL_SHIFT) + 1   # cell bounds a row
+
+
+def _round4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def build_row_tables(cdfs, cdf_lengths, offsets
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """The lane coders' row tables: (row offsets int32 (rows,), table
+    uint32 (total,), a multiple of 16 bytes). The decoder's pair takes the
+    place of build_slot_tables' (the symbol is the bucket + the row's
+    offset); the table alone takes the place of build_enc_tables' enc_sf.
+    For the codec's 64-row Gaussian bank the table is ~139 KB, against
+    32 MB of slot tables and 802 KB of enc_sf."""
+    cdfs = np.asarray(cdfs, np.int64)
+    lengths = np.asarray(cdf_lengths, np.int64).reshape(-1)
+    offsets = np.asarray(offsets, np.int64).reshape(-1)
+    rows = cdfs.shape[0]
+    coarse_off = 4 + 2 * rows
+    words_off = _round4(coarse_off + -(-rows * COARSE // 2))
+    buckets = int((lengths - 1).sum())
+    if buckets > 1 << 16:
+        raise ValueError(f"{buckets} buckets: the row tables index at most "
+                         "2^16 (a table that fits shared memory has fewer)")
+    total = _round4(words_off + buckets)
+    out = np.zeros(total, np.uint32)
+    coarse = np.zeros((rows, COARSE), np.uint16)
+    cell_slots = np.append(np.arange(0, SLOTS, 1 << CELL_SHIFT), SLOTS - 1)
+    base = 0
+    for r in range(rows):
+        L = int(lengths[r])
+        cdf = cdfs[r, :L]
+        if L < 2 or cdf[0] != 0 or cdf[-1] != SLOTS:
+            raise ValueError(f"row {r}: invalid CDF (len {L})")
+        # the slot's bucket: the last whose start is <= the slot
+        coarse[r] = base + np.searchsorted(cdf, cell_slots, side="right") - 1
+        out[words_off + base:words_off + base + L - 1] = (
+            (cdf[:-1] + ((np.diff(cdf) - 1) << 16)) & 0xFFFFFFFF)
+        out[4 + 2 * r:6 + 2 * r] = (base, L - 1)
+        base += L - 1
+    out[:4] = (rows, coarse_off, words_off, total)
+    out[coarse_off:words_off].view(np.uint16)[:rows * COARSE] = coarse.ravel()
+    return offsets.astype(np.int32), out
+
+
+class _RowTables:
+    """build_row_tables' table (an int32 tensor of its bits) taken apart
+    for the plain versions, in int64."""
+
+    def __init__(self, table: torch.Tensor):
+        flat = table.reshape(-1)
+        t = _unsigned(flat, 32)
+        rows, coarse_off, words_off, _ = (int(v) for v in t[:4].tolist())
+        meta = t[4:4 + 2 * rows].view(rows, 2)
+        self.rows, self.base, self.nb = rows, meta[:, 0], meta[:, 1]
+        self.words = t[words_off:words_off + int(self.nb.sum())]
+        coarse = _unsigned(flat[coarse_off:words_off].view(torch.int16), 16)
+        last = coarse[:rows * COARSE].view(rows, COARSE)[:, -1] - self.base
+        # every row's starts in one ascending key, row * 2^17 + start; a
+        # trailing zero-width bucket (start 2^16, past the bucket of the
+        # last slot) keys above every slot of its row
+        dev = flat.device
+        row_of = torch.repeat_interleave(torch.arange(rows, device=dev),
+                                         self.nb)
+        local = torch.arange(self.words.numel(), device=dev) - self.base[row_of]
+        start = torch.where(local <= last[row_of], self.words & 0xFFFF,
+                            torch.full_like(local, SLOTS))
+        self.keys = (row_of << 17) + start
+
+    def bucket(self, row: torch.Tensor, slot: torch.Tensor):
+        """The last bucket of each row whose start is <= the slot: (bucket
+        position, its word)."""
+        g = torch.searchsorted(self.keys, (row << 17) + slot, right=True) - 1
+        return g - self.base[row], self.words[g]
+
+    def enc_word(self, row: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """build_enc_tables' start | freq << 16 word of (row, pos), 0 past
+        the row's buckets; row and pos clamped as the kernel clamps them."""
+        row = torch.clamp(row, 0, self.rows - 1)
+        p = torch.clamp(pos, min=0)
+        inside = p < self.nb[row]
+        g = torch.where(inside, self.base[row] + p, torch.zeros_like(p))
+        return torch.where(inside, (self.words[g] + SLOTS) & 0xFFFFFFFF,
+                           torch.zeros_like(p))
+
+
 # --------------------------------------------------------------- decode --
 
-def rans_lanes_decode_ref(words, n_words, states, indexes, lut_a, lut_b,
-                          lanes: int, paired: bool, check_base: bool):
+def rans_lanes_decode_ref(words, n_words, states, indexes, offsets, table,
+                          lanes: int, check_base: bool):
     """Plain PyTorch statement of the decode kernel (and of the JAX loop):
     (symbols (n,) int32, ok () bool, final states (K,) int32 bits).
     Words past n_words are read as they lie in the buffer (the kernel reads
-    0 there); in both a stream that runs over ends with ok false."""
+    0 there); in both a stream that runs over ends with ok false. A coding
+    index outside the rows is read as row 0 and clears ok."""
     n, K = indexes.numel(), lanes
     dev = indexes.device
     T, idx, active_rows = _rows(indexes, K)
+    rt = _RowTables(table)
+    bad = ((idx < 0) | (idx >= min(rt.rows, offsets.numel()))) & active_rows
+    idx = torch.where(bad, torch.zeros_like(idx), idx)
     w64 = torch.cat([_unsigned(words.reshape(-1), 16),
                      torch.zeros(K, dtype=torch.int64, device=dev)])
     last = w64.numel() - 1
     x = _unsigned(states.reshape(-1), 32)
     ptr = torch.zeros((), dtype=torch.int64, device=dev)
     out = torch.zeros((T, K), dtype=torch.int64, device=dev)
-    lut_b2 = lut_b.reshape(-1, 2) if paired else None
     for t in range(T):
         active = active_rows[t]
         slot = x & 0xFFFF
-        flat = idx[t] * SLOTS + slot
-        if paired:
-            pair = lut_b2[flat]                  # one gather, 2 values
-            df = _unsigned(pair[:, 0], 32)
-            rec = pair[:, 1].to(torch.int64)     # bucket position
-        else:
-            df = _unsigned(lut_b[flat], 32)
-            rec = slot
-        delta = df & 0xFFFF                      # slot - cdf start
-        freq = (df >> 16) + 1
-        x2 = (freq * (x >> 16) + delta) & 0xFFFFFFFF
+        b, w = rt.bucket(idx[t], slot)
+        start = w & 0xFFFF
+        freq = (w >> 16) + 1
+        x2 = (freq * (x >> 16) + slot - start) & 0xFFFFFFFF
         need = (x2 < RANS_L16) & active
         need_i = need.to(torch.int64)
         cum = torch.cumsum(need_i, 0)
@@ -141,17 +242,12 @@ def rans_lanes_decode_ref(words, n_words, states, indexes, lut_a, lut_b,
         w = w64[torch.clamp(ptr + local, max=last)]
         x2 = torch.where(need, ((x2 << 16) | w) & 0xFFFFFFFF, x2)
         x = torch.where(active, x2, x)
-        out[t] = torch.where(active, rec, torch.zeros_like(rec))
+        out[t] = torch.where(active, b, torch.zeros_like(b))
         ptr = ptr + need_i.sum()
-    ok = ptr == n_words.to(torch.int64).reshape(())
+    ok = (ptr == n_words.to(torch.int64).reshape(())) & ~bad.any()
     if check_base:
         ok = ok & bool_all(x == RANS_L16)
-    rec = out.reshape(-1)[:n]
-    i64 = indexes.to(torch.int64)
-    if paired:
-        syms = rec + lut_a.to(torch.int64)[i64]
-    else:
-        syms = lut_a[i64 * SLOTS + rec].to(torch.int64)
+    syms = out.reshape(-1)[:n] + offsets.to(torch.int64)[idx.reshape(-1)[:n]]
     return syms.to(torch.int32), ok, _wrap(x, 32).to(torch.int32)
 
 
@@ -159,7 +255,17 @@ def rans_lanes_decode_ref(words, n_words, states, indexes, lut_a, lut_b,
 def _entries():
     lib = _build.load_kernel("rans_lanes")
     return (_build.bind(lib, "dcae_rans_lanes_decode", 9, 6),
-            _build.bind(lib, "dcae_rans_lanes_encode", 9, 5))
+            _build.bind(lib, "dcae_rans_lanes_encode", 9, 4),
+            _build.bind_query(lib, "dcae_rans_lanes_smem", 4))
+
+
+def smem_bytes(kernel: str, table: torch.Tensor, lanes: int,
+               rows: int = 0) -> int:
+    """Shared memory a launch of `kernel` ("decode", with `rows` row
+    offsets, or "encode") asks for on this table with this many lanes
+    (builds the kernels' library)."""
+    return int(_entries()[2](("decode", "encode").index(kernel),
+                             table.numel() * 4, int(lanes), int(rows)))
 
 
 def _operand(what: str, t: torch.Tensor, dtype, like: torch.Tensor) -> int:
@@ -172,24 +278,35 @@ def _operand(what: str, t: torch.Tensor, dtype, like: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def rans_lanes_decode(words, n_words, states, indexes, lut_a, lut_b,
-                      lanes: int, paired: bool = False,
-                      check_base: bool = True
+def _table_bytes(what: str, kernel: str, table: torch.Tensor, K: int,
+                 rows: int = 0) -> int:
+    """The table's bytes, after checking that a launch can take it."""
+    nbytes = table.numel() * 4
+    if nbytes < 16 or nbytes % 16 or table.data_ptr() % 16:
+        raise ValueError(f"{what}: the row table must be 16-byte aligned "
+                         f"and a multiple of 16 bytes ({nbytes})")
+    if smem_bytes(kernel, table, K, rows) > _build.SMEM_LIMIT:
+        raise ValueError(f"{what}: a row table of {nbytes} bytes does not "
+                         "fit a block's shared memory")
+    return nbytes
+
+
+def rans_lanes_decode(words, n_words, states, indexes, offsets, table,
+                      lanes: int, check_base: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode indexes.numel() symbols of one slice's stream.
 
     words (W,) int16 (uint16 bits; W >= n_words, the padding is ignored);
     n_words () int32 tensor; states (K,) int32 (uint32 bits), the
     decode-start states; indexes (n,) int32 CDF rows in stream order;
-    paired: lut_a (rows,) int32 row offsets and lut_b (rows * 2^16, 2)
-    int32 (df, bucket position) pairs; classic: lut_a the symbols and lut_b
-    the df words, (rows * 2^16,) int32 each (build_slot_tables).
-    Returns (symbols (n,) int32, ok () bool, final states (K,) int32);
-    nothing here waits for the device. ok: the stream was consumed exactly
-    and, with check_base, every lane ended at 2^16."""
+    offsets (rows,) int32 and table int32 (uint32 bits): build_row_tables'
+    pair. Returns (symbols (n,) int32, ok () bool, final states (K,)
+    int32); nothing here waits for the device. ok: the stream was consumed
+    exactly, every index names a row and, with check_base, every lane
+    ended at 2^16."""
     if indexes.device.type == "cpu":
-        return rans_lanes_decode_ref(words, n_words, states, indexes, lut_a,
-                                     lut_b, lanes, paired, check_base)
+        return rans_lanes_decode_ref(words, n_words, states, indexes,
+                                     offsets, table, lanes, check_base)
     if indexes.device.type != "cuda":
         raise ValueError(f"rans_lanes_decode: no kernel for {indexes.device}")
     what = "rans_lanes_decode"
@@ -197,10 +314,6 @@ def rans_lanes_decode(words, n_words, states, indexes, lut_a, lut_b,
     i32 = torch.int32
     if states.numel() != K or not 1 <= K < 1 << 16:
         raise ValueError(f"{what}: {states.numel()} states for {K} lanes")
-    rows = lut_a.numel() if paired else lut_a.numel() // SLOTS
-    if lut_b.numel() != rows * SLOTS * (2 if paired else 1) or rows < 1:
-        raise ValueError(f"{what}: tables of {lut_a.numel()} and "
-                         f"{lut_b.numel()} entries")
     if n >= (1 << 31) - (1 << 16):
         raise ValueError(f"{what}: {n} symbols do not fit the kernel's ints")
     syms = torch.empty(n, dtype=i32, device=indexes.device)
@@ -210,20 +323,20 @@ def rans_lanes_decode(words, n_words, states, indexes, lut_a, lut_b,
             _operand(what, n_words, i32, indexes),
             _operand(what, states, i32, indexes),
             _operand(what, indexes, i32, indexes),
-            _operand(what, lut_a, i32, indexes),
-            _operand(what, lut_b, i32, indexes))
-    if lut_b.data_ptr() % 8:
-        raise ValueError(f"{what}: lut_b must be 8-byte aligned")
+            _operand(what, offsets, i32, indexes),
+            _operand(what, table, i32, indexes))
+    if offsets.numel() < 1:
+        raise ValueError(f"{what}: no rows")
+    table_bytes = _table_bytes(what, "decode", table, K, offsets.numel())
     with torch.cuda.device(indexes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _entries()[0](*ptrs, syms.data_ptr(), st_out.data_ptr(),
-                           ok.data_ptr(), words.numel(), n, K, rows,
-                           int(paired), int(check_base), stream)
+                           ok.data_ptr(), words.numel(), table_bytes, n, K,
+                           offsets.numel(), int(check_base), stream)
     _build.check(rc, what)
     rans_lanes_decode.launches += 1
-    # the streams, states and symbols (a lookup touches a sliver of the
-    # tables)
-    note_launch(what, 0, words, n_words, states, indexes, syms, st_out)
+    note_launch(what, 0, words, n_words, states, indexes, table, syms,
+                st_out)
     return syms, ok != 0, st_out
 
 
@@ -232,8 +345,8 @@ rans_lanes_decode.launches = 0
 
 # --------------------------------------------------------------- encode --
 
-def rans_lanes_encode_ref(pos, idx, in_range, enc_sf, stride: int,
-                          lanes: int, init_states=None):
+def rans_lanes_encode_ref(pos, idx, in_range, table, lanes: int,
+                          init_states=None):
     """Plain PyTorch statement of the encode kernel (and of the JAX loop,
     with an exact integer division where the TPU multiplies by an f32
     reciprocal and corrects): (words (n + 1,) int16 bits in emission order,
@@ -246,7 +359,7 @@ def rans_lanes_encode_ref(pos, idx, in_range, enc_sf, stride: int,
     _, ok2, _ = _rows(in_range, K)
     ok2 = ok2 != 0
     # everything table-driven happens once, before the loop
-    sf = _unsigned(enc_sf[idx2 * stride + pos2], 32)
+    sf = _RowTables(table).enc_word(idx2, pos2)
     start_all = sf & 0xFFFF
     freq_raw = sf >> 16               # TRUE freq; 0 = a zero-width bucket
     esc = (active_rows & ~(ok2 & (freq_raw > 0))).sum() > 0
@@ -278,32 +391,29 @@ def rans_lanes_encode_ref(pos, idx, in_range, enc_sf, stride: int,
             _wrap(x, 32).to(torch.int32), esc)
 
 
-def rans_lanes_encode(pos, idx, in_range, enc_sf, stride: int, lanes: int,
+def rans_lanes_encode(pos, idx, in_range, table, lanes: int,
                       init_states: Optional[torch.Tensor] = None):
-    """Encode one slice. pos (n,) int32 bucket positions already clamped
-    into [0, stride); idx (n,) int32 CDF rows; in_range (n,) bool, False
-    where the symbol's row has no in-range bucket; enc_sf (rows * stride,)
-    int32 (start | freq << 16 as uint32 bits, build_enc_tables);
+    """Encode one slice. pos (n,) int32 bucket positions; idx (n,) int32
+    CDF rows; in_range (n,) bool, False where the symbol has no in-range
+    bucket; table int32 (uint32 bits), build_row_tables' table;
     init_states (K,) int32 bits or None for the 2^16 base.
     Returns (words (n + 1,) int16 bits in EMISSION order, zero past n_words
     (the byte stream is the reversed prefix words[:n_words]), n_words ()
     int32, the decode-start states (K,) int32 bits, escape () bool).
     Nothing here waits for the device."""
     if idx.device.type == "cpu":
-        return rans_lanes_encode_ref(pos, idx, in_range, enc_sf, stride,
-                                     lanes, init_states)
+        return rans_lanes_encode_ref(pos, idx, in_range, table, lanes,
+                                     init_states)
     if idx.device.type != "cuda":
         raise ValueError(f"rans_lanes_encode: no kernel for {idx.device}")
     what = "rans_lanes_encode"
-    n, K, stride = idx.numel(), int(lanes), int(stride)
+    n, K = idx.numel(), int(lanes)
     i32 = torch.int32
     if pos.numel() != n or in_range.numel() != n:
         raise ValueError(f"{what}: {pos.numel()} positions and "
                          f"{in_range.numel()} flags for {n} indexes")
-    if not 1 <= K < 1 << 16 or stride < 1 or enc_sf.numel() % stride \
-            or not enc_sf.numel() or n >= (1 << 31) - (1 << 16):
-        raise ValueError(f"{what}: lanes {K}, stride {stride}, table of "
-                         f"{enc_sf.numel()}, n {n}")
+    if not 1 <= K < 1 << 16 or n >= (1 << 31) - (1 << 16):
+        raise ValueError(f"{what}: lanes {K}, n {n}")
     if init_states is not None and init_states.numel() != K:
         raise ValueError(f"{what}: {init_states.numel()} states for {K} "
                          "lanes")
@@ -314,17 +424,18 @@ def rans_lanes_encode(pos, idx, in_range, enc_sf, stride: int, lanes: int,
     esc = torch.empty((), dtype=i32, device=idx.device)
     ptrs = (_operand(what, pos, i32, idx), _operand(what, idx, i32, idx),
             _operand(what, in_range, torch.bool, idx),
-            _operand(what, enc_sf, i32, idx),
+            _operand(what, table, i32, idx),
             None if init_states is None
             else _operand(what, init_states, i32, idx))
+    table_bytes = _table_bytes(what, "encode", table, K)
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _entries()[1](*ptrs, words.data_ptr(), n_words.data_ptr(),
-                           st_out.data_ptr(), esc.data_ptr(), n, K, stride,
-                           enc_sf.numel() // stride, cap, stream)
+                           st_out.data_ptr(), esc.data_ptr(), table_bytes, n,
+                           K, cap, stream)
     _build.check(rc, what)
     rans_lanes_encode.launches += 1
-    note_launch(what, 0, pos, idx, in_range, words, n_words, st_out)
+    note_launch(what, 0, pos, idx, in_range, table, words, n_words, st_out)
     return words, n_words, st_out, esc != 0
 
 

@@ -342,6 +342,12 @@ LANE_CASES = [(50_000, 1024), (49_152, 512), (777, 16), (64, 64), (5, 8),
               (1, 1), (3000, 100), (70_000, 2048), (9000, 1500)]
 
 
+def _row_tables(tables):
+    from dcae_tpu_torch.entropy import device_decode as dd
+
+    return dd.row_tables_to_device(dd.build_row_tables(*tables), "cuda")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("adversarial", [False, True])
 @pytest.mark.parametrize("n,K", LANE_CASES)
@@ -349,13 +355,11 @@ def test_rans_lanes_encode_kernel(card, n, K, adversarial):
     """Two chained slices: the kernel's words, counts, states and escape
     flag equal the plain version's and the C++ host coder's stream, for
     one lane a thread (K <= 1024) and for the wide kernel."""
-    from dcae_tpu_torch.entropy import device_decode as dd
     from dcae_tpu_torch.entropy import rans
     from dcae_tpu_torch.ops.kernels import rans_lanes as rl
 
     tables = _lane_tables(adversarial)
-    enc_sf, offs, maxpos, stride = dd.enc_tables_to_device(
-        dd.build_enc_tables(*tables), "cuda")
+    _, table = _row_tables(tables)
     state_k = state_p = host_state = None
     for s in (1, 0):
         sym, idx = _lane_draw(tables, n, seed=31 * n + s)
@@ -365,11 +369,11 @@ def test_rans_lanes_encode_kernel(card, n, K, adversarial):
         idx_d = torch.from_numpy(idx).cuda()
         ok = torch.ones(n, dtype=torch.bool, device="cuda")
         before = rl.rans_lanes_encode.launches
-        w, nw, state_k, esc = rl.rans_lanes_encode(pos, idx_d, ok, enc_sf,
-                                                   stride, K, state_k)
+        w, nw, state_k, esc = rl.rans_lanes_encode(pos, idx_d, ok, table, K,
+                                                   state_k)
         assert rl.rans_lanes_encode.launches == before + 1
         w_p, nw_p, state_p, esc_p = rl.rans_lanes_encode_ref(
-            pos, idx_d, ok, enc_sf, stride, K, state_p)
+            pos, idx_d, ok, table, K, state_p)
         assert torch.equal(w, w_p) and torch.equal(nw, nw_p)
         assert torch.equal(state_k, state_p)
         assert not bool(esc) and not bool(esc_p)
@@ -383,14 +387,14 @@ def test_rans_lanes_encode_kernel(card, n, K, adversarial):
 def test_rans_lanes_decode_kernel(card, n, K, paired):
     """Two chained slices of the host coder's streams, padded: symbols, ok
     and final states equal the plain version's, the symbols are the
-    encoder's, and the chain ends at the 2^16 base."""
+    encoder's, and the chain ends at the 2^16 base. The container's paired
+    flag, taken by device_decode's chained decode, changes no bit."""
     from dcae_tpu_torch.entropy import device_decode as dd
     from dcae_tpu_torch.entropy import rans
     from dcae_tpu_torch.ops.kernels import rans_lanes as rl
 
     tables = _lane_tables()
-    luts = dd.slot_tables_to_device(
-        dd.build_slot_tables(*tables, paired=paired), "cuda")
+    luts = _row_tables(tables)
     data = [_lane_draw(tables, n, seed=17 * n + s) for s in range(2)]
     streams, st = [None, None], None
     for s in (1, 0):
@@ -404,15 +408,97 @@ def test_rans_lanes_decode_kernel(card, n, K, paired):
         nw = torch.tensor(len(words), dtype=torch.int32).cuda()
         idx_d = torch.from_numpy(data[s][1]).cuda()
         before = rl.rans_lanes_decode.launches
+        chained = dd.decode_interleaved_chain(padded, nw, state_k, idx_d,
+                                              *luts, K, 2, paired)
         sym_k, ok_k, state_k = rl.rans_lanes_decode(
-            padded, nw, state_k, idx_d, *luts, K, paired, s == 1)
-        assert rl.rans_lanes_decode.launches == before + 1
+            padded, nw, state_k, idx_d, *luts, K, s == 1)
+        assert rl.rans_lanes_decode.launches == before + 2
         sym_p, ok_p, state_p = rl.rans_lanes_decode_ref(
-            padded, nw, state_p, idx_d, *luts, K, paired, s == 1)
+            padded, nw, state_p, idx_d, *luts, K, s == 1)
         assert bool(ok_k) and bool(ok_p)
         assert torch.equal(sym_k, sym_p) and torch.equal(state_k, state_p)
+        assert torch.equal(chained[0], sym_k) and bool(chained[1])
+        assert torch.equal(chained[2], state_k)
         assert np.array_equal(sym_k.cpu().numpy(), data[s][0])
     assert bool((state_k == rl.RANS_L16).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", range(8))
+@pytest.mark.parametrize("n,K", [(5, 8), (64, 64), (777, 16),
+                                 (30_000, 256)])
+def test_rans_lanes_decode_any_word_alignment(card, n, K, shift):
+    """The word ring takes a stream at any 2-byte offset from a 16-byte
+    boundary: the few words before and after the 16-byte body come apart
+    from the bulk copies."""
+    from dcae_tpu_torch.entropy import rans
+    from dcae_tpu_torch.ops.kernels import rans_lanes as rl
+
+    tables = _lane_tables()
+    luts = _row_tables(tables)
+    sym, idx = _lane_draw(tables, n, seed=n + shift)
+    stream, states = rans.encode_interleaved(sym, idx, *tables, K)
+    words = np.frombuffer(stream, np.uint16)
+    buf = np.full(len(words) + 16, 0xABCD, np.uint16)
+    buf[shift:shift + len(words)] = words
+    view = rl.u16_bits(buf, "cuda")[shift:shift + len(words)]
+    if len(words):                     # an empty view has no address
+        assert view.data_ptr() % 16 == 2 * shift
+    nw = torch.tensor(len(words), dtype=torch.int32).cuda()
+    st = rl.u32_bits(states, "cuda")
+    idx_d = torch.from_numpy(idx).cuda()
+    sym_k, ok_k, st_k = rl.rans_lanes_decode(view, nw, st, idx_d, *luts, K)
+    sym_p, ok_p, st_p = rl.rans_lanes_decode_ref(view, nw, st, idx_d, *luts,
+                                                 K, True)
+    assert bool(ok_k) and bool(ok_p)
+    assert torch.equal(sym_k, sym_p) and torch.equal(st_k, st_p)
+    assert np.array_equal(sym_k.cpu().numpy(), sym)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("K", [256, 512, 1024, 2048])
+def test_rans_lanes_kernels_on_the_gaussian_bank(card, K, narrow):
+    """The codec's 64-row bank, its whole row table in shared memory: the
+    kernels equal their plain versions and the host coder on symbols drawn
+    from the rows' own pmfs, over every row or over the 8 narrowest (as a
+    trained model's latents mostly code)."""
+    from dcae_tpu_torch.entropy import rans
+    from dcae_tpu_torch.entropy.gaussian import get_scale_table
+    from dcae_tpu_torch.entropy.tables import build_gaussian_table
+    from dcae_tpu_torch.ops.kernels import rans_lanes as rl
+
+    g = build_gaussian_table(get_scale_table())
+    tables = (g.quantized_cdf, g.cdf_length, g.offset)
+    offs, table = _row_tables(tables)
+    rng = np.random.default_rng(K + narrow)
+    n = 60 * K
+    idx = rng.integers(0, 8 if narrow else len(g.cdf_length),
+                       n).astype(np.int32)
+    slot = rng.integers(0, 1 << 16, n)
+    pos = np.array([np.searchsorted(g.quantized_cdf[r, :g.cdf_length[r]], v,
+                                    side="right") - 1
+                    for r, v in zip(idx, slot)])
+    pos = np.minimum(pos, g.cdf_length[idx] - 3)
+    sym = (pos + g.offset[idx]).astype(np.int32)
+    stream, states = rans.encode_interleaved(sym, idx, *tables, K)
+    pos_d = torch.from_numpy(pos.astype(np.int32)).cuda()
+    idx_d = torch.from_numpy(idx).cuda()
+    inr = torch.ones(n, dtype=torch.bool, device="cuda")
+    enc = rl.rans_lanes_encode(pos_d, idx_d, inr, table, K)
+    enc_p = rl.rans_lanes_encode_ref(pos_d, idx_d, inr, table, K)
+    assert all(torch.equal(a, b) for a, b in zip(enc, enc_p))
+    assert rl.to_u16(enc[0])[:int(enc[1])][::-1].tobytes() == stream
+    assert np.array_equal(rl.to_u32(enc[2]), states)
+    words = rl.u16_bits(np.frombuffer(stream, np.uint16), "cuda")
+    nw = torch.tensor(words.numel(), dtype=torch.int32).cuda()
+    st = rl.u32_bits(states, "cuda")
+    dec = rl.rans_lanes_decode(words, nw, st, idx_d, offs, table, K)
+    dec_p = rl.rans_lanes_decode_ref(words, nw, st, idx_d, offs, table, K,
+                                     True)
+    assert bool(dec[1]) and bool(dec_p[1])
+    assert torch.equal(dec[0], dec_p[0]) and torch.equal(dec[2], dec_p[2])
+    assert np.array_equal(dec[0].cpu().numpy(), sym)
 
 
 @pytest.mark.cuda
@@ -421,7 +507,6 @@ def test_rans_lanes_kernels_flag_faults(card, K):
     """A flipped word, a bumped state, a short stream and a coding index
     outside the table give ok = false and no fault; a symbol marked out of
     range or a zero-width bucket raises the encoder's escape flag."""
-    from dcae_tpu_torch.entropy import device_decode as dd
     from dcae_tpu_torch.entropy import rans
     from dcae_tpu_torch.ops.kernels import rans_lanes as rl
 
@@ -429,7 +514,7 @@ def test_rans_lanes_kernels_flag_faults(card, K):
     n = 30_000
     sym, idx = _lane_draw(tables, n, seed=4)
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
-    luts = dd.slot_tables_to_device(dd.build_slot_tables(*tables), "cuda")
+    luts = _row_tables(tables)
     words = np.frombuffer(stream, np.uint16)
     idx_d = torch.from_numpy(idx).cuda()
 
@@ -457,24 +542,20 @@ def test_rans_lanes_kernels_flag_faults(card, K):
     cdfs, lengths, offsets = (a.copy() for a in tables)
     r = idx[123]
     cdfs[r, 2] = cdfs[r, 1]                            # bucket 1 has width 0
-    tabs = dd.enc_tables_to_device(
-        dd.build_enc_tables(cdfs, lengths, offsets), "cuda")
+    _, zw_table = _row_tables((cdfs, lengths, offsets))
     pos = torch.from_numpy(sym - offsets[idx]).cuda()
     in_range = torch.ones(n, dtype=torch.bool, device="cuda")
-    good = dd.enc_tables_to_device(dd.build_enc_tables(*tables), "cuda")
-    assert not bool(rl.rans_lanes_encode(pos, idx_d, in_range, good[0],
-                                         good[3], K)[3])
+    table = luts[1]
+    assert not bool(rl.rans_lanes_encode(pos, idx_d, in_range, table, K)[3])
     marked = in_range.clone()
     marked[n - 1] = False
     zero_width = pos.clone()
     zero_width[123] = 1
-    got = rl.rans_lanes_encode(zero_width, idx_d, in_range, tabs[0],
-                               tabs[3], K)
-    want = rl.rans_lanes_encode_ref(zero_width, idx_d, in_range, tabs[0],
-                                    tabs[3], K)
+    got = rl.rans_lanes_encode(zero_width, idx_d, in_range, zw_table, K)
+    want = rl.rans_lanes_encode_ref(zero_width, idx_d, in_range, zw_table, K)
     assert bool(got[3]) and bool(want[3])
-    assert bool(rl.rans_lanes_encode(pos, idx_d, marked, good[0], good[3],
-                                     K)[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(rl.rans_lanes_encode(pos, idx_d, marked, table, K)[3])
 
 
 @pytest.mark.cuda
@@ -483,21 +564,22 @@ def test_rans_lanes_wrappers_refuse_wrong_operands(card):
 
     i32 = dict(dtype=torch.int32, device="cuda")
     idx = torch.zeros(8, **i32)
+    luts = _row_tables(_lane_tables())
     with pytest.raises(TypeError, match="dtype"):
-        rl.rans_lanes_encode(idx.long(), idx, idx.bool(), idx, 1, 4)
+        rl.rans_lanes_encode(idx.long(), idx, idx.bool(), luts[1], 4)
     with pytest.raises(ValueError, match="lanes"):
-        rl.rans_lanes_encode(idx, idx, idx.bool(), idx, 1, 1 << 16)
+        rl.rans_lanes_encode(idx, idx, idx.bool(), luts[1], 1 << 16)
     with pytest.raises(ValueError, match="states"):
         rl.rans_lanes_decode(torch.zeros(4, dtype=torch.int16,
                                          device="cuda"),
                              torch.zeros((), **i32), torch.zeros(3, **i32),
-                             idx, torch.zeros(1 << 16, **i32),
-                             torch.zeros(1 << 16, **i32), 4)
+                             idx, *luts, 4)
     with pytest.raises(ValueError, match="operands on"):
         rl.rans_lanes_decode(torch.zeros(4, dtype=torch.int16),
                              torch.zeros((), **i32), torch.zeros(4, **i32),
-                             idx, torch.zeros(1 << 16, **i32),
-                             torch.zeros(1 << 16, **i32), 4)
+                             idx, *luts, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        rl.rans_lanes_encode(idx, idx, idx.bool(), luts[1][1:], 4)
 
 
 # ------------------------------------------------- gradients on the card --

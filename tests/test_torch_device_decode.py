@@ -1,8 +1,10 @@
 """The port's K-lane interleaved rANS (dcae_tpu_torch/entropy/device_decode.py,
 plain versions, on the CPU) against the JAX package's
 dcae_tpu/entropy/device_decode.py and the C++ host coder, case for case
-with tests/test_device_decode.py. Inputs come from seeded numpy; every
-result is an integer array and is compared EXACTLY.
+with tests/test_device_decode.py. Both packages code under the same CDFs:
+the port reads its row tables (build_row_tables), the JAX package its slot
+and enc_sf tables. Inputs come from seeded numpy; every result is an
+integer array and is compared EXACTLY.
 """
 
 import jax.numpy as jnp
@@ -64,13 +66,17 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _decode(words, n_words, states, idx, luts, K, unroll=1, paired=False):
+def _decode(words, n_words, states, idx, tables, K, unroll=1, paired=False):
+    """The port's decode under the row tables of `tables` (CDFs)."""
+    luts = dd.build_row_tables(*tables)
     out, ok = dd.decode_interleaved(_t(words), n_words, states, _t(idx),
                                     luts[0], luts[1], K, unroll, paired)
     return out.numpy(), bool(ok)
 
 
-def _jdecode(words, states, idx, luts, K, unroll=1, paired=False):
+def _jdecode(words, states, idx, tables, K, unroll=1, paired=False):
+    """The JAX package's decode under the slot tables of `tables`."""
+    luts = jdd.build_slot_tables(*tables, paired=paired)
     out, ok = jdd.decode_interleaved(
         jnp.asarray(words), jnp.int32(len(words)), jnp.asarray(states),
         jnp.asarray(idx), jnp.asarray(luts[0]), jnp.asarray(luts[1]), K,
@@ -157,15 +163,14 @@ def test_binding_argument_checks(tables):
 
 @pytest.mark.parametrize("paired", [False, True])
 @pytest.mark.parametrize("n,K", [(50_000, 1024), (49_152, 512), (777, 16),
-                                 (64, 64), (5, 8), (1, 1)])
+                                 (64, 64), (5, 8), (1, 1), (20_000, 2048)])
 def test_decode_matches_jax_and_cpp(tables, n, K, paired):
     sym, idx = _draw(tables, n, seed=100 + n)
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
-    luts = dd.build_slot_tables(*tables, paired=paired)
     words = np.frombuffer(stream, np.uint16)
-    out, ok = _decode(words, len(words), states, idx, luts, K,
+    out, ok = _decode(words, len(words), states, idx, tables, K,
                       paired=paired)
-    jout, jok = _jdecode(words, states, idx, luts, K, paired=paired)
+    jout, jok = _jdecode(words, states, idx, tables, K, paired=paired)
     assert ok and jok
     np.testing.assert_array_equal(out, jout)
     np.testing.assert_array_equal(out, sym)
@@ -179,8 +184,7 @@ def test_decode_on_the_gaussian_bank(bank):
     stream, states = rans.encode_interleaved(sym, idx, *bank, K)
     words = np.frombuffer(stream, np.uint16)
     for paired in (False, True):
-        luts = dd.build_slot_tables(*bank, paired=paired)
-        out, ok = _decode(words, len(words), states, idx, luts, K,
+        out, ok = _decode(words, len(words), states, idx, bank, K,
                           paired=paired)
         assert ok
         np.testing.assert_array_equal(out, sym)
@@ -191,18 +195,17 @@ def test_decode_padded_words(tables):
     sym, idx = _draw(tables, 10_000, seed=3)
     K = 256
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
-    luts = dd.build_slot_tables(*tables)
     words = np.frombuffer(stream, np.uint16)
     padded = np.concatenate([words, np.zeros(1000, np.uint16)])
-    out, ok = _decode(padded, len(words), states, idx, luts, K)
+    out, ok = _decode(padded, len(words), states, idx, tables, K)
     assert ok
     np.testing.assert_array_equal(out, sym)
     # the count may come as a tensor, the words and states as torch
     # unsigned or signed-bit tensors
     out2, ok2 = dd.decode_interleaved(
         rl.u16_bits(padded), torch.tensor(len(words), dtype=torch.int32),
-        rl.u32_bits(states), _t(idx), *dd.slot_tables_to_device(luts, "cpu"),
-        K)
+        rl.u32_bits(states), _t(idx),
+        *dd.row_tables_to_device(dd.build_row_tables(*tables), "cpu"), K)
     assert bool(ok2)
     np.testing.assert_array_equal(out2.numpy(), sym)
 
@@ -211,20 +214,24 @@ def test_checksum_flags_corruption(tables):
     sym, idx = _draw(tables, 30_000, seed=4)
     K = 256
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
-    luts = dd.build_slot_tables(*tables)
     words = np.frombuffer(stream, np.uint16).copy()
     words[50] ^= 0xFFFF
-    _, ok = _decode(words, len(words), states, idx, luts, K)
-    _, jok = _jdecode(words, states, idx, luts, K)
+    _, ok = _decode(words, len(words), states, idx, tables, K)
+    _, jok = _jdecode(words, states, idx, tables, K)
     assert not ok and not jok
 
     st2 = states.copy()
     st2[0] += 1
     words_ok = np.frombuffer(stream, np.uint16)
-    _, ok = _decode(words_ok, len(words_ok), st2, idx, luts, K)
+    _, ok = _decode(words_ok, len(words_ok), st2, idx, tables, K)
     assert not ok
     # a stream cut short runs over its end
-    _, ok = _decode(words_ok[:-3], len(words_ok) - 3, states, idx, luts, K)
+    _, ok = _decode(words_ok[:-3], len(words_ok) - 3, states, idx, tables, K)
+    assert not ok
+    # a coding index that names no row
+    wild = idx.copy()
+    wild[7] = 1000
+    _, ok = _decode(words_ok, len(words_ok), states, wild, tables, K)
     assert not ok
 
 
@@ -233,20 +240,18 @@ def test_unroll_identical(tables, unroll):
     sym, idx = _draw(tables, 10_000, seed=42)
     K = 128
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
-    luts = dd.build_slot_tables(*tables)
     words = np.frombuffer(stream, np.uint16)
-    out, ok = _decode(words, len(words), states, idx, luts, K, unroll)
-    jout, jok = _jdecode(words, states, idx, luts, K, unroll)
+    out, ok = _decode(words, len(words), states, idx, tables, K, unroll)
+    jout, jok = _jdecode(words, states, idx, tables, K, unroll)
     assert ok and jok
     np.testing.assert_array_equal(out, jout)
     np.testing.assert_array_equal(out, sym)
 
 
 def test_unroll_must_be_positive(tables):
-    luts = dd.build_slot_tables(*tables)
     with pytest.raises(ValueError, match="unroll"):
         _decode(np.zeros(1, np.uint16), 0, np.full(4, 1 << 16, np.uint32),
-                np.zeros(4, np.int32), luts, 4, unroll=0)
+                np.zeros(4, np.int32), tables, 4, unroll=0)
 
 
 @pytest.mark.parametrize("n,K,unroll", [(50_000, 1024, 1), (777, 16, 2),
@@ -254,11 +259,12 @@ def test_unroll_must_be_positive(tables):
 def test_decode_paired_lut_matches(tables, n, K, unroll):
     sym, idx = _draw(tables, n, seed=500 + n)
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
-    luts = dd.build_slot_tables(*tables, paired=True)
+    luts = jdd.build_slot_tables(*tables, paired=True)
     assert luts[1].shape == (tables[0].shape[0] * 65536, 2)
     words = np.frombuffer(stream, np.uint16)
-    out, ok = _decode(words, len(words), states, idx, luts, K, unroll, True)
-    jout, jok = _jdecode(words, states, idx, luts, K, unroll, True)
+    out, ok = _decode(words, len(words), states, idx, tables, K, unroll,
+                      True)
+    jout, jok = _jdecode(words, states, idx, tables, K, unroll, True)
     assert ok and jok
     np.testing.assert_array_equal(out, jout)
     np.testing.assert_array_equal(out, sym)
@@ -282,7 +288,15 @@ def _adversarial_tables(rng, rows=6, maxlen=34):
     return cdfs, lengths, offsets
 
 
-def _encode(sym, idx, tabs, K, unroll=1):
+def _port_enc(tables):
+    """The port's encode tables of `tables` (CDFs): (row table, offsets,
+    maxpos, stride), where the JAX package takes build_enc_tables'."""
+    offs, table = dd.build_row_tables(*tables)
+    return (table, offs, *dd.enc_bounds(tables[1]))
+
+
+def _encode(sym, idx, tables, K, unroll=1):
+    tabs = _port_enc(tables)
     buf, nw, st, esc = dd.encode_interleaved_device(
         _t(sym), _t(idx), tabs[0], tabs[1], tabs[2], tabs[3], K, unroll)
     return rl.to_u16(buf), int(nw), rl.to_u32(st), bool(esc)
@@ -299,7 +313,7 @@ def test_encode_adversarial_freqs(K):
     sym = val + offsets[idx]
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
     tabs = dd.build_enc_tables(*tables)
-    buf, nw, st, esc = _encode(sym, idx, tabs, K)
+    buf, nw, st, esc = _encode(sym, idx, tables, K)
     assert not esc
     np.testing.assert_array_equal(st, states)
     assert buf[:nw][::-1].tobytes() == stream
@@ -312,12 +326,13 @@ def test_encode_adversarial_freqs(K):
     np.testing.assert_array_equal(st, np.asarray(jst))
 
 
-@pytest.mark.parametrize("n,K", [(50_000, 1024), (777, 16), (5, 8), (1, 1)])
+@pytest.mark.parametrize("n,K", [(50_000, 1024), (777, 16), (5, 8), (1, 1),
+                                 (20_000, 2048)])
 def test_encode_matches_cpp_and_jax(tables, n, K):
     sym, idx = _draw(tables, n, seed=200 + n)
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
     tabs = dd.build_enc_tables(*tables)
-    buf, nw, st, esc = _encode(sym, idx, tabs, K, unroll=2)
+    buf, nw, st, esc = _encode(sym, idx, tables, K, unroll=2)
     assert not esc
     assert buf[:nw][::-1].tobytes() == stream
     np.testing.assert_array_equal(st, states)
@@ -348,7 +363,7 @@ def test_encode_escape_flag(tables, what):
         cdfs[r, pos + 1] = cdfs[r, pos]          # bucket `pos` has width 0
         sym[123] = offsets[r] + pos
     tabs = dd.build_enc_tables(cdfs, lengths, offsets)
-    assert _encode(sym, idx, tabs, 64)[3]
+    assert _encode(sym, idx, (cdfs, lengths, offsets), 64)[3]
     _, _, _, jesc = jdd.encode_interleaved_device(
         jnp.asarray(sym), jnp.asarray(idx), jnp.asarray(tabs[0]),
         jnp.asarray(tabs[1]), jnp.asarray(tabs[2]), tabs[3], 64)
@@ -370,8 +385,9 @@ def test_encode_slices_with_patches_matches_jax(tables, chain, patch_cap):
     sym[1, 5], sym[1, 77], sym[1, 4000] = 9_999, -9_999, 512
     sym[2, n - 1] = 7_777
     tabs = dd.build_enc_tables(*tables)
+    port = _port_enc(tables)
     got = dd.encode_slices_with_patches(
-        _t(sym), _t(idx), tabs[0], tabs[1], tabs[2], tabs[3], K, 2,
+        _t(sym), _t(idx), port[0], port[1], port[2], port[3], K, 2,
         patch_cap, chain=chain)
     want = jdd.encode_slices_with_patches(
         jnp.asarray(sym), jnp.asarray(idx), jnp.asarray(tabs[0]),
@@ -406,9 +422,10 @@ def test_encode_slices_row_without_buckets_escapes(tables):
     sym, idx = _draw(tables, 512, seed=8)
     idx[10] = 4
     tabs = dd.build_enc_tables(cdfs, lengths, offsets)
+    port = _port_enc((cdfs, lengths, offsets))
     args = (tabs[3], 16, 1, 8)
     got = dd.encode_slices_with_patches(_t(sym[None]), _t(idx[None]),
-                                        tabs[0], tabs[1], tabs[2], *args)
+                                        port[0], port[1], port[2], *args)
     want = jdd.encode_slices_with_patches(
         jnp.asarray(sym[None]), jnp.asarray(idx[None]), jnp.asarray(tabs[0]),
         jnp.asarray(tabs[1]), jnp.asarray(tabs[2]), *args)
@@ -447,7 +464,8 @@ class TestChainedLaneSet:
             np.testing.assert_array_equal(out, sym[s])
         assert np.all(cur == dd.RANS_L16)
 
-        luts = dd.build_slot_tables(*tables, paired=True)
+        luts = dd.build_row_tables(*tables)
+        jluts = jdd.build_slot_tables(*tables, paired=True)
         cur, jcur = header, jnp.asarray(header)
         for s in range(S):
             w = np.frombuffer(streams[s], np.uint16)
@@ -455,13 +473,13 @@ class TestChainedLaneSet:
                 _t(w), len(w), cur, _t(idx[s]), luts[0], luts[1], K, 2, True)
             jout, jok, jcur = jdd.decode_interleaved_chain(
                 jnp.asarray(w), jnp.int32(len(w)), jcur, jnp.asarray(idx[s]),
-                jnp.asarray(luts[0]), jnp.asarray(luts[1]), K, 2, True)
+                jnp.asarray(jluts[0]), jnp.asarray(jluts[1]), K, 2, True)
             assert bool(ok) and bool(jok)
             np.testing.assert_array_equal(out.numpy(), sym[s])
             np.testing.assert_array_equal(rl.to_u32(cur), np.asarray(jcur))
         assert np.all(rl.to_u32(cur) == dd.RANS_L16)
 
-        tabs = dd.build_enc_tables(*tables)
+        tabs = _port_enc(tables)
         res = dd.encode_slices_with_patches(
             _t(sym), _t(idx), tabs[0], tabs[1], tabs[2], tabs[3], K, 2, 16,
             chain=True)
@@ -478,7 +496,7 @@ class TestChainedLaneSet:
         bad = bytearray(streams[1])
         bad[len(bad) // 2] ^= 0xFF
         streams[1] = bytes(bad)
-        luts = dd.build_slot_tables(*tables, paired=True)
+        luts = dd.build_row_tables(*tables)
         cur, ok_all = st, True
         for s in range(S):
             w = np.frombuffer(streams[s], np.uint16)
@@ -494,13 +512,12 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu_tensors(tables):
     """On the CPU the wrappers count no launch; for a device without a
     kernel they raise."""
     sym, idx = _draw(tables, 64, seed=2)
-    tabs = dd.build_enc_tables(*tables)
     before = (rl.rans_lanes_encode.launches, rl.rans_lanes_decode.launches)
-    _encode(sym, idx, tabs, 8)
+    _encode(sym, idx, tables, 8)
     assert (rl.rans_lanes_encode.launches,
             rl.rans_lanes_decode.launches) == before
     meta = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        rl.rans_lanes_encode(meta, meta, meta, meta, 1, 4)
+        rl.rans_lanes_encode(meta, meta, meta, meta, 4)
     with pytest.raises(ValueError, match="no kernel"):
         rl.rans_lanes_decode(meta, meta, meta, meta, meta, meta, 4)

@@ -250,7 +250,10 @@ def _global_kernels() -> list:
 
 def test_every_hand_kernel_has_its_region():
     names = _global_kernels()
-    assert len(names) >= 13, names
+    # 12 since the lane coders' wide kernels became template instances
+    assert len(names) >= 12, names
+    assert {"rans_lanes_decode_kernel", "rans_lanes_encode_kernel"} <= set(
+        names), names
     want = {"wmsa": "wmsa_kernel", "conv_glu": "conv_glu_kernel",
             "rans_lanes": "rans_lanes_kernel"}
     for name in names:
