@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase serve
     python3 chip_smoke.py --phase sp
     python3 chip_smoke.py --phase tools
+    python3 chip_smoke.py --phase bench
     python3 chip_smoke.py --phase validate   # the records' full run
 
 Phases, in order:
@@ -191,6 +192,16 @@ Phases, in order:
              bench_wmsa (wmsa_attention at the three stage shapes, batch
                         8) in bf16 and f32, 3 reps; bench_link, 3 reps.
              It prints one JSON line of its own ({"tools": ...}).
+  bench      bench_torch.py as a subprocess at reduced depth on seeded
+             weights (batch 2 of 768x512, 1 round, budget 0, 2 pipeline
+             batches): exit 0; its last line a result with value > 0, no
+             error, the certified (fast) encoder, the interleaved profile
+             ok and no batch of it coded classic; its launch line the
+             kernels of each measured part, exactly: wmsa_block 30 and
+             conv_glu 34 a compress + decompress, the lane coders 5 + 5 a
+             pair on the interleaved parts and none on the classic ones.
+             It prints the bench's line, then one JSON line of its own
+             ({"bench": ...}).
   validate   (only with --phase validate) the records' full run:
              validate_training --full at the JAX package's protocol (200
              synthetic PNGs, 8 epochs x 25 steps, batch 8, 256x256) at
@@ -198,11 +209,17 @@ Phases, in order:
              checkpoints (8 images); cross-device decode without shipped
              indexes on the lambda 0.013 weights, card -> CPU and CPU ->
              card; lanes_ab (K 1024 / 512 / 256 / 128, batch 8, 3 rounds)
-             and profile_interleaved (both stages, batch 8) on them.
+             and profile_interleaved (both stages, batch 8) on them;
+             bench_torch.py at its full protocol (batch 8, 3 rounds, the
+             default budget) on seeded weights and on the lambda 0.013
+             checkpoint, held as in the bench phase.
              It prints one JSON line of its own ({"validate": ...}).
   profile    (only with --phase profile) device time of one slice run by
              kernel, from torch.profiler: staged, shipped-index and
-             interleaved pairs; then of one full-width training step.
+             interleaved pairs; then of one serving round of each loop in
+             bench_torch.py's configuration (6 batches of 8 x 768x512,
+             seeded weights) with the device's busy share; then of one
+             full-width training step.
   bands      (only with --phase bands) the bf16 conv_glu call at the path's
              shape walked in bands of 12, 24 and 48 MiB of [g | v], and
              what the host spends to enqueue one call.
@@ -225,6 +242,7 @@ import time
 import numpy as np
 
 from dcae_tpu_torch.data.synthetic import synthetic_kodak
+from dcae_tpu_torch.ops.kernels import wrappers
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 non-tensor
@@ -290,14 +308,6 @@ RANS_N, RANS_SLICES, RANS_LANES = 196_608, 5, 512
 
 def fail(msg: str) -> None:
     raise SystemExit(f"FAILED: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -988,32 +998,19 @@ def reference_phase() -> None:
 
 # --------------------------------------------------------------- slice --
 
-def _wrappers() -> dict:
-    from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu
-    from dcae_tpu_torch.ops.kernels.rans_lanes import (rans_lanes_decode,
-                                                       rans_lanes_encode)
-    from dcae_tpu_torch.ops.kernels.wmsa_attention import wmsa_attention
-    from dcae_tpu_torch.ops.kernels.wmsa_block import wmsa_block
-
-    return {"wmsa_block": wmsa_block, "conv_glu": conv_glu,
-            "wmsa_attention": wmsa_attention,
-            "rans_lanes_encode": rans_lanes_encode,
-            "rans_lanes_decode": rans_lanes_decode}
-
-
 def counted(fn):
     """Run fn() with every launch counter set to 0 just before it, then
     synchronize; returns (result, counts read just after, host ms)."""
     import torch
 
-    wrappers = _wrappers()
-    for w in wrappers.values():
+    kernels = wrappers()
+    for w in kernels.values():
         w.launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return out, {k: w.launches for k, w in wrappers.items()}, ms
+    return out, {k: w.launches for k, w in kernels.items()}, ms
 
 
 def median_ms(fn, first_ms: float, per: int) -> tuple:
@@ -1434,10 +1431,10 @@ def _strings(enc: dict) -> dict:
     return {"strings": enc["strings"], "shape": enc["shape"]}
 
 
-def print_device_profile(prof, label: str, wall: float, what: str) -> None:
+def print_device_profile(prof, label: str, wall: float, what: str) -> float:
     """Device time of a profiled window by kernel kind (utils/profiling.py:
     op_type), the share of the wall time the device was busy, and the
-    longest kernels."""
+    longest kernels. Returns the busy ms."""
     from torch.autograd import DeviceType
     from dcae_tpu_torch.utils.profiling import op_type
 
@@ -1464,6 +1461,65 @@ def print_device_profile(prof, label: str, wall: float, what: str) -> None:
                             or "wmsa_" in e.key]:
         print(f"profile {label} kernel {dev(e) / 1e3:9.3f} ms "
               f"x{e.count:4d}  {e.key[:90]}", flush=True)
+    return busy_ms
+
+
+# bench_torch.py's defaults: the batch, and the batches of a serving round
+BENCH_BATCH, BENCH_PIPE_BATCHES = 8, 6
+
+
+def profile_serving_rounds() -> None:
+    """The device's busy share in the bench's serving rounds, in
+    bench_torch.py's configuration (bf16 DCAEConfig(), seeded weights, the
+    certified encoder, 6 copies of a batch of 8 x 768x512 a round): each
+    loop warmed by one round, 3 rounds unprofiled (their median wall),
+    then one round under torch.profiler. The busy share is printed
+    against the profiled round's wall and against the unprofiled
+    median."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+
+    codec = DCAECodec(DCAEConfig(compute_dtype="bfloat16"), seed=0)
+    codec.update(force=True)
+    imgs = synthetic_kodak(BENCH_BATCH)
+    if not codec.self_check(imgs[:1]):
+        fail("profile serving: self_check did not certify an encoder")
+    stream = [imgs] * BENCH_PIPE_BATCHES
+    n_img = BENCH_BATCH * BENCH_PIPE_BATCHES
+    loops = {"serving interleaved": codec.encdec_pipeline_interleaved,
+             "serving classic": codec.encdec_pipeline}
+    for label, loop in loops.items():
+        def one_round(loop=loop):
+            t0 = time.perf_counter()
+            outs = loop(stream)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, outs
+
+        one_round()                                      # warm-up
+        walls = [one_round()[0] for _ in range(3)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, outs = one_round()
+        # the interleaved loop tags a batch it had to code classic
+        n_classic = sum(o.get("profile") == "classic" for o in outs)
+        if not all(bool(o.get("ok", True)) for o in outs):
+            fail(f"profile {label}: a lanes checksum failed")
+        busy = print_device_profile(
+            prof, label, wall, f"one round of {BENCH_PIPE_BATCHES} batches "
+            f"of {BENCH_BATCH} x 768x512 ({n_classic} coded classic by the "
+            "interleaved loop)")
+        med = float(np.median(walls))
+        print(f"profile {label}: unprofiled rounds "
+              f"{[round(w * 1e3, 1) for w in walls]} ms, median "
+              f"{med * 1e3:.1f} ms = {med * 1e3 / n_img:.2f} ms an image, "
+              f"{n_img / med:.4f} img/s; device busy {busy / n_img:.2f} ms "
+              f"an image, {100 * busy / (med * 1e3):.1f}% of the unprofiled "
+              "median", flush=True)
+    codec.close()
+    del codec
+    torch.cuda.empty_cache()
 
 
 def profile_train_step() -> None:
@@ -1572,6 +1628,7 @@ def profile_phase() -> None:
     codec.close()
     del codec
     torch.cuda.empty_cache()
+    profile_serving_rounds()
     profile_train_step()
 
 
@@ -2805,12 +2862,12 @@ def loopback_part(codec, imgs: np.ndarray) -> dict:
             warm = [payloads[0], payloads[len(imgs)]]
             for kind, name, blob in warm + payloads:
                 done.clear()
-                for w in _wrappers().values():
+                for w in wrappers().values():
                     w.launches = 0
                 send_bytes(name, blob, "127.0.0.1", srv.bound_port)
                 if not done.wait(120):
                     fail(f"serve loopback: no decode of {name}")
-                counts = {k: w.launches for k, w in _wrappers().items()}
+                counts = {k: w.launches for k, w in wrappers().items()}
                 if name not in served:
                     fail(f"serve loopback: {name} did not decode")
                 res[kind].append({"name": name, "bytes": len(blob),
@@ -3659,6 +3716,75 @@ def tools_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------- bench --
+
+# launches of one compress + decompress of the default codec: the classic
+# format, and the interleaved profile (a lane coder a slice each way)
+BENCH_PAIR = {"wmsa_block": 30, "conv_glu": 34, "wmsa_attention": 0,
+              "rans_lanes_encode": 0, "rans_lanes_decode": 0}
+BENCH_IL_PAIR = {**BENCH_PAIR, "rans_lanes_encode": 5,
+                 "rans_lanes_decode": 5}
+
+
+def bench_run(label: str, ckpt: str, args: list, env_extra: dict) -> dict:
+    """bench_torch.py `args` as a subprocess on `ckpt` ("" = seeded
+    weights): fails unless it exits 0 and its last line is a result with
+    value > 0, no error, the certified encoder and the interleaved profile
+    ok with no batch coded classic, and unless its launch line has each
+    measured part's pairs' launches exactly. Returns {"result",
+    "launches", "seconds"}."""
+    import torch
+
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DCAE_BENCH_")}
+    env.update(DCAE_BENCH_CKPT=ckpt, **env_extra)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "bench_torch.py", *args], env=env,
+                         cwd=root, capture_output=True, text=True,
+                         timeout=1700)
+    sec = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        fail(f"{label}: bench_torch.py exit {out.returncode}\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    print(f"{label}: " + lines[-1], flush=True)
+    res = json.loads(lines[-1])
+    det = res["detail"]
+    if "terminated_by_signal" in det:
+        fail(f"{label}: bench_torch.py was cut by signal "
+             f"{det['terminated_by_signal']} before its end: {res}")
+    il = det.get("interleaved_profile", {})
+    if not (res["value"] > 0 and "error" not in det
+            and det.get("fast_encoder") is True and il.get("ok") is True
+            and il.get("classic_batches") == 0):
+        fail(f"{label}: want value > 0, no error, fast_encoder, the "
+             f"interleaved profile ok with 0 classic batches; got {res}")
+    launch_line = [ln for ln in lines if ln.startswith("launches ")][-1]
+    counts = json.loads(launch_line.split(" ", 1)[1])
+    rounds_pairs = det["rounds"] * det["pipeline_batches"]
+    pairs = {"single_image": (1, BENCH_PAIR), "sequential": (2, BENCH_PAIR),
+             "interleaved": (4, BENCH_IL_PAIR),
+             "serving_classic": (rounds_pairs, BENCH_PAIR),
+             "serving_interleaved": (rounds_pairs, BENCH_IL_PAIR),
+             "interleaved_single_image": (2, BENCH_IL_PAIR),
+             "indexes_1trip": (2, BENCH_PAIR)}
+    print(f"{label}: {sec:.1f} s, launches {json.dumps(counts)}", flush=True)
+    for part, (n, per) in pairs.items():
+        check_counts(f"{label} {part}", counts.get(part),
+                     {k: n * v for k, v in per.items()})
+    return {"result": res, "launches": counts, "seconds": sec}
+
+
+def bench_phase() -> dict:
+    """bench_torch.py at reduced depth on seeded weights: batch 2, 1 round,
+    budget 0, 2 pipeline batches."""
+    return bench_run("bench", "", ["2", "1"],
+                     {"DCAE_BENCH_BUDGET_S": "0",
+                      "DCAE_BENCH_PIPE_BATCHES": "2"})
+
+
 # ------------------------------------------------------------ validate --
 
 def validate_phase() -> dict:
@@ -3667,8 +3793,9 @@ def validate_phase() -> dict:
     25 steps, batch 8) at lambda 0.013, 0.0018 and 0.05; rd_sweep_eval
     over the three checkpoints; lanes_ab (K 1024 / 512 / 256 / 128, batch
     8, 3 rounds) and profile_interleaved on the lambda 0.013 checkpoint;
-    cross-device decode without shipped indexes on its weights, both ways.
-    The checkpoints stay in a temporary directory."""
+    cross-device decode without shipped indexes on its weights, both ways;
+    bench_torch.py at its full protocol on seeded weights and on the lambda
+    0.013 checkpoint. The checkpoints stay in a temporary directory."""
     from dcae_tpu_torch.data.synthetic import make_dataset
     from dcae_tpu_torch.tools import rd_sweep_eval
     from dcae_tpu_torch.utils.checkpoint import load_params_only
@@ -3693,6 +3820,9 @@ def validate_phase() -> dict:
             load_params_only(ckpt))
         out.update(run_lanes_profile(ckpt, "1024,512,256,128", 3, 8,
                                      "both"))
+        # the bench's own protocol: batch 8, 3 rounds, the default budget
+        out["bench_seeded"] = bench_run("bench seeded", "", [], {})
+        out["bench_trained"] = bench_run("bench lambda 0.013", ckpt, [], {})
     out["seconds"] = time.perf_counter() - t_phase
     print(f"validate phase: {out['seconds']:.1f} s", flush=True)
     return out
@@ -3703,8 +3833,8 @@ def main() -> int:
     ap.add_argument("--phase", choices=("all", "kernels", "rans",
                                         "reference", "slice", "train",
                                         "split",
-                                        "serve", "sp", "tools", "profile",
-                                        "bands", "validate"),
+                                        "serve", "sp", "tools", "bench",
+                                        "profile", "bands", "validate"),
                     default="all",
                     help="one phase only; rans: the lane coders' part of "
                     "kernels alone; profile (not part of all) traces "
@@ -3736,6 +3866,7 @@ def main() -> int:
     torch.backends.cudnn.benchmark = False
 
     from dcae_tpu_torch.ops.kernels import _build
+    from dcae_tpu_torch.utils.profiling import card_line
 
     card = card_line()
     print(card, flush=True)
@@ -3773,6 +3904,9 @@ def main() -> int:
     tools_res = None
     if args.phase in ("all", "tools"):
         tools_res = tools_phase()
+    bench_res = None
+    if args.phase in ("all", "bench"):
+        bench_res = bench_phase()
     validate_res = None
     if args.phase == "validate":
         validate_res = validate_phase()
@@ -3809,6 +3943,8 @@ def main() -> int:
         print(json.dumps({"sp": sp_res}))
     if tools_res is not None:
         print(json.dumps({"tools": tools_res}))
+    if bench_res is not None:
+        print(json.dumps({"bench": bench_res}))
     if validate_res is not None:
         print(json.dumps({"validate": validate_res}))
     print(card)

@@ -17,3 +17,18 @@ def note_launch(name: str, flops: int, *tensors) -> None:
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
         for hook in launch_costs:
             hook(name, int(flops), int(nbytes))
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper by name; each counts its kernel's launches in
+    its `.launches` attribute."""
+    from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu
+    from dcae_tpu_torch.ops.kernels.rans_lanes import (rans_lanes_decode,
+                                                       rans_lanes_encode)
+    from dcae_tpu_torch.ops.kernels.wmsa_attention import wmsa_attention
+    from dcae_tpu_torch.ops.kernels.wmsa_block import wmsa_block
+
+    return {"wmsa_block": wmsa_block, "conv_glu": conv_glu,
+            "wmsa_attention": wmsa_attention,
+            "rans_lanes_encode": rans_lanes_encode,
+            "rans_lanes_decode": rans_lanes_decode}

@@ -5,6 +5,7 @@ torch.profiler:
                          the per-op table (op_stats.json) into logdir
   * op_stats(logdir)     device time by op type, by group, the longest ops
   * time_fn(fn, ...)     wall time with a full device sync, after warm-up
+  * card_line()          the card's name and power limit (nvidia-smi)
   * device_ms(fn, iters) device time a call on the card (CUDA events),
                          the host's enqueue time hidden behind a sleep
   * sdpa_call(...)       one SDPA call on the windows of a wmsa input: the
@@ -22,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import time
 from typing import Callable, Dict, Optional
 
@@ -137,6 +139,17 @@ def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 2) -> Dict:
         times.append(time.perf_counter() - t0)
     return {"median_s": float(np.median(times)),
             "best_s": float(np.min(times)), "times_s": times}
+
+
+def card_line() -> str:
+    """`name, power.limit` of the first card nvidia-smi lists, as it gives
+    them: a card may be set below its maximum power and then runs slower,
+    so every number taken on it is kept beside this line."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def device_ms(fn, iters: int) -> float:

@@ -122,7 +122,8 @@ def test_bin_parses_with_jax_container(codecs, tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, the training sub-packages and the tools
-    included, and chip_smoke, import neither jax nor anything of dcae_tpu
+    included, chip_smoke and bench_torch (with the kernel wrappers its
+    launch counters read), import neither jax nor anything of dcae_tpu
     (nor the root tools or bench.py)."""
     code = (
         "import pkgutil, importlib, sys\n"
@@ -145,6 +146,8 @@ def test_port_imports_no_jax():
         "             'tools.bench_wmsa', 'tools.bench_link'):\n"
         "    assert 'dcae_tpu_torch.' + want in names, want\n"
         "import chip_smoke\n"
+        "import bench_torch\n"
+        "bench_torch.Launches()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dcae_tpu' or m.startswith('dcae_tpu.')\n"
         "       or m in ('bench', 'tools') or m.startswith('tools.')]\n"
