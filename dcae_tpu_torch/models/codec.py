@@ -64,6 +64,7 @@ from dcae_tpu_torch.entropy.gaussian import get_scale_table
 from dcae_tpu_torch.entropy.tables import CodecTables, build_codec_tables
 from dcae_tpu_torch.models.dcae import DCAE, HALF_TRANSFORMS
 from dcae_tpu_torch.ops.kernels.rans_lanes import to_u16, to_u32
+from dcae_tpu_torch.utils.profiling import count, sinks, span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -673,41 +674,42 @@ class DCAECodec:
         (analysis -> replay of the decoder's function -> lane encoder);
         returns the pending handle _compress_device_fetch completes. Waits
         for the device nowhere when x already lies on it."""
-        model, st = self.model, self._scale_table
-        x = self._input(x)
-        enc_sf, offs, maxpos, stride = self._enc_luts()
-        B, H, W = x.shape[0], x.shape[1], x.shape[2]
-        yd = self.cfg.y_downsample
-        n_slice = B * (H // yd) * (W // yd) * self.cfg.slice_dim
-        K = int(lanes or _auto_lanes(n_slice))
-        if certify:
-            y, z_symbols, z_hat = model.encode_analysis(x)
-            _, _, idxs, syms = model.decode_device_streams(
-                z_hat, None, None, None, None, None, True, y, None, None,
-                st, unroll, True, chain)
-            res = device_decode.encode_slices_with_patches(
-                syms, idxs, enc_sf, offs, maxpos, stride, K, unroll,
-                self.patch_cap, chain=chain)
-        else:
-            res = model.encode_device_streams(
-                x, st, enc_sf, offs, maxpos, stride, K, unroll,
-                self.patch_cap, chain)
-            z_symbols = res["z_symbols"]
-        # the word and patch counts and the flags
-        head = torch.cat([
-            res["n_words"], res["patch_count"],
-            torch.stack([res["escape"], res["patch_overflow"]]).to(
-                torch.int32)])
-        # every buffer the container may need, copied whole (the words:
-        # 2 bytes a symbol) behind one event, so that the fetch waits for
-        # these copies only and not for work queued after them
-        host = self._copy_to_host({
-            "head": head, "words": res["words"], "states": res["states"],
-            "patch_pos": res["patch_pos"], "patch_val": res["patch_val"],
-            "z_symbols": z_symbols})
-        return {"host": host, "head": head, "cap": n_slice + 1, "K": K,
-                "unroll": int(unroll), "chain": bool(chain),
-                "paired": bool(paired)}
+        with span("codec.encode.dispatch"):
+            model, st = self.model, self._scale_table
+            x = self._input(x)
+            enc_sf, offs, maxpos, stride = self._enc_luts()
+            B, H, W = x.shape[0], x.shape[1], x.shape[2]
+            yd = self.cfg.y_downsample
+            n_slice = B * (H // yd) * (W // yd) * self.cfg.slice_dim
+            K = int(lanes or _auto_lanes(n_slice))
+            if certify:
+                y, z_symbols, z_hat = model.encode_analysis(x)
+                _, _, idxs, syms = model.decode_device_streams(
+                    z_hat, None, None, None, None, None, True, y, None, None,
+                    st, unroll, True, chain)
+                res = device_decode.encode_slices_with_patches(
+                    syms, idxs, enc_sf, offs, maxpos, stride, K, unroll,
+                    self.patch_cap, chain=chain)
+            else:
+                res = model.encode_device_streams(
+                    x, st, enc_sf, offs, maxpos, stride, K, unroll,
+                    self.patch_cap, chain)
+                z_symbols = res["z_symbols"]
+            # the word and patch counts and the flags
+            head = torch.cat([
+                res["n_words"], res["patch_count"],
+                torch.stack([res["escape"], res["patch_overflow"]]).to(
+                    torch.int32)])
+            # every buffer the container may need, copied whole (the words:
+            # 2 bytes a symbol) behind one event, so that the fetch waits for
+            # these copies only and not for work queued after them
+            host = self._copy_to_host({
+                "head": head, "words": res["words"], "states": res["states"],
+                "patch_pos": res["patch_pos"], "patch_val": res["patch_val"],
+                "z_symbols": z_symbols})
+            return {"host": host, "head": head, "cap": n_slice + 1, "K": K,
+                    "unroll": int(unroll), "chain": bool(chain),
+                    "paired": bool(paired)}
 
     def _compress_device_fetch(self, pend: dict) -> dict:
         """Phase 2 of compress_device: wait for the dispatch's copies to
@@ -715,40 +717,44 @@ class DCAECodec:
         symbols to their counts and code z on the host. Raises
         rans.EscapeError."""
         host = pend["host"]
-        if "_ready" in host:
-            host["_ready"].synchronize()
-        S = self.cfg.num_slices
-        head = host["head"].numpy()
-        n_words, pcnt = head[:S], head[S:2 * S]
-        if head[2 * S]:
-            raise rans.EscapeError(
-                "symbol outside in-range CDF buckets (device encode)")
-        if head[2 * S + 1]:
-            raise rans.EscapeError(
-                f"escape patch list overflow (> {self.patch_cap}/slice)")
-        words = to_u16(host["words"][:, :max(int(n_words.max()), 1)])
-        n_patch = int(pcnt.max())
-        ppos = host["patch_pos"][:, :n_patch].numpy()
-        pval = host["patch_val"][:, :n_patch].numpy()
-        z_sym = host["z_symbols"].numpy()
-        return {
-            # emission order reversed is the order the decoder reads
-            "istreams": [words[s, :int(n_words[s])][::-1].tobytes()
-                         for s in range(S)],
-            "states": to_u32(host["states"]),
-            "patches": [(ppos[s, :int(pcnt[s])].copy(),
-                         pval[s, :int(pcnt[s])].copy()) for s in range(S)],
-            # the container's field, as the JAX package's compress_device
-            # writes it: the word-buffer bucket, the decode loop's unroll,
-            # the slot-table layout; and the lane-set layout (DTI1 / DTI2)
-            "bucket": _len_bucket(int(n_words.max()), pend["cap"]),
-            "unroll": pend["unroll"],
-            "paired": pend["paired"],
-            "chained": pend["chain"],
-            "z_strings": self._encode_z(z_sym),
-            "shape": (z_sym.shape[1], z_sym.shape[2]),
-            "lanes": pend["K"],
-        }
+        with span("codec.encode.wait"):
+            if "_ready" in host:
+                host["_ready"].synchronize()
+        with span("codec.encode.host"):
+            S = self.cfg.num_slices
+            head = host["head"].numpy()
+            n_words, pcnt = head[:S], head[S:2 * S]
+            if head[2 * S]:
+                raise rans.EscapeError(
+                    "symbol outside in-range CDF buckets (device encode)")
+            if head[2 * S + 1]:
+                raise rans.EscapeError(
+                    f"escape patch list overflow (> {self.patch_cap}/slice)")
+            if sinks:
+                count("codec.patched_symbols", int(pcnt.sum()))
+            words = to_u16(host["words"][:, :max(int(n_words.max()), 1)])
+            n_patch = int(pcnt.max())
+            ppos = host["patch_pos"][:, :n_patch].numpy()
+            pval = host["patch_val"][:, :n_patch].numpy()
+            z_sym = host["z_symbols"].numpy()
+            return {
+                # emission order reversed is the order the decoder reads
+                "istreams": [words[s, :int(n_words[s])][::-1].tobytes()
+                             for s in range(S)],
+                "states": to_u32(host["states"]),
+                "patches": [(ppos[s, :int(pcnt[s])].copy(),
+                             pval[s, :int(pcnt[s])].copy()) for s in range(S)],
+                # the container's field, as the JAX package's compress_device
+                # writes it: the word-buffer bucket, the decode loop's unroll,
+                # the slot-table layout; and the lane-set layout (DTI1 / DTI2)
+                "bucket": _len_bucket(int(n_words.max()), pend["cap"]),
+                "unroll": pend["unroll"],
+                "paired": pend["paired"],
+                "chained": pend["chain"],
+                "z_strings": self._encode_z(z_sym),
+                "shape": (z_sym.shape[1], z_sym.shape[2]),
+                "lanes": pend["K"],
+            }
 
     @torch.no_grad()
     def compress_interleaved(self, x, lanes: Optional[int] = None,
@@ -829,44 +835,46 @@ class DCAECodec:
         """The host part of decompress_interleaved: the arguments of
         _decompress_interleaved_device, tensors on the device; z_hat is
         uploaded last."""
-        zh, zw = int(enc["shape"][0]), int(enc["shape"][1])
-        streams = enc["istreams"]
-        S = len(streams)
-        states = np.array(enc["states"], np.uint32)    # a writable copy
-        n_words = np.array([len(b) // 2 for b in streams], np.int32)
-        words = np.zeros((S, max(int(n_words.max()), 1)), np.uint16)
-        for s, b in enumerate(streams):
-            words[s, :n_words[s]] = np.frombuffer(b, np.uint16)
-        # the container's field: validated, otherwise unused (eager code
-        # has no program shape to reproduce, and the slot-table layout
-        # changes no symbol)
-        unroll = int(enc.get("unroll") or 2)
-        if unroll not in (1, 2, 4, 8, 16, 32, 64):
-            raise ValueError(f"interleaved stream: unroll {unroll}")
-        # a 1-D state vector IS the chain header (the dict's flag wins)
-        chained = bool(enc.get("chained", states.ndim == 1))
-        if states.shape != ((int(enc["lanes"]),) if chained
-                            else (S, int(enc["lanes"]))):
-            raise ValueError(f"interleaved stream: states {states.shape} "
-                             f"for {enc['lanes']} lanes, chained {chained}")
-        # escape patches, padded to the longest list; padding rows hold a
-        # position past the slice's symbols, which the scatter drops
-        r = self.cfg.hyper_ratio
-        n_flat = (len(enc["z_strings"]) * (zh * r) * (zw * r)
-                  * self.cfg.slice_dim)
-        patches = enc.get("patches") or []
-        P = max([len(p[0]) for p in patches], default=0)
-        ppos = np.full((S, P), n_flat, np.int32)
-        pval = np.zeros((S, P), np.int32)
-        for s, (pos, val) in enumerate(patches):
-            ppos[s, :len(pos)] = pos
-            pval[s, :len(val)] = val
-        z_hat = self._decode_z_hat(enc["z_strings"], zh, zw)
-        luts = self._slot_luts()
-        up = self._upload
-        return (up(words.view(np.int16)), up(n_words),
-                up(states.view(np.int32)), up(ppos), up(pval), luts, unroll,
-                chained, up(z_hat))
+        with span("codec.decode.host"):
+            zh, zw = int(enc["shape"][0]), int(enc["shape"][1])
+            streams = enc["istreams"]
+            S = len(streams)
+            states = np.array(enc["states"], np.uint32)    # a writable copy
+            n_words = np.array([len(b) // 2 for b in streams], np.int32)
+            words = np.zeros((S, max(int(n_words.max()), 1)), np.uint16)
+            for s, b in enumerate(streams):
+                words[s, :n_words[s]] = np.frombuffer(b, np.uint16)
+            # the container's field: validated, otherwise unused (eager code
+            # has no program shape to reproduce, and the slot-table layout
+            # changes no symbol)
+            unroll = int(enc.get("unroll") or 2)
+            if unroll not in (1, 2, 4, 8, 16, 32, 64):
+                raise ValueError(f"interleaved stream: unroll {unroll}")
+            # a 1-D state vector IS the chain header (the dict's flag wins)
+            chained = bool(enc.get("chained", states.ndim == 1))
+            if states.shape != ((int(enc["lanes"]),) if chained
+                                else (S, int(enc["lanes"]))):
+                raise ValueError(
+                    f"interleaved stream: states {states.shape} for "
+                    f"{enc['lanes']} lanes, chained {chained}")
+            # escape patches, padded to the longest list; padding rows hold a
+            # position past the slice's symbols, which the scatter drops
+            r = self.cfg.hyper_ratio
+            n_flat = (len(enc["z_strings"]) * (zh * r) * (zw * r)
+                      * self.cfg.slice_dim)
+            patches = enc.get("patches") or []
+            P = max([len(p[0]) for p in patches], default=0)
+            ppos = np.full((S, P), n_flat, np.int32)
+            pval = np.zeros((S, P), np.int32)
+            for s, (pos, val) in enumerate(patches):
+                ppos[s, :len(pos)] = pos
+                pval[s, :len(val)] = val
+            z_hat = self._decode_z_hat(enc["z_strings"], zh, zw)
+            luts = self._slot_luts()
+            up = self._upload
+            return (up(words.view(np.int16)), up(n_words),
+                    up(states.view(np.int32)), up(ppos), up(pval), luts,
+                    unroll, chained, up(z_hat))
 
     @torch.no_grad()
     def _decompress_interleaved_device(self, words, n_words, states, ppos,
@@ -874,10 +882,11 @@ class DCAECodec:
                                        chained: bool, z_hat) -> dict:
         """The device part of decompress_interleaved: queues everything and
         waits for the device nowhere."""
-        y_hat, ok, _, _ = self.model.decode_device_streams(
-            z_hat, words, n_words, states, ppos, pval, False, None,
-            luts[0], luts[1], self._scale_table, unroll, True, chained)
-        return {"x_hat": self.model.decode_synthesis(y_hat), "ok": ok}
+        with span("codec.decode.dispatch"):
+            y_hat, ok, _, _ = self.model.decode_device_streams(
+                z_hat, words, n_words, states, ppos, pval, False, None,
+                luts[0], luts[1], self._scale_table, unroll, True, chained)
+            return {"x_hat": self.model.decode_synthesis(y_hat), "ok": ok}
 
     # ------------------------------------------------------- serving loop --
     # The JAX package's loops run a producer thread that encodes ahead

@@ -3,20 +3,18 @@ PyTorch statement. A wrapper runs the plain version for CPU tensors and
 launches its kernel for CUDA tensors; there is no fallback between the
 two."""
 
-# Callbacks of a cost count in progress (utils/profiling.py:
-# cost_analysis), each called with (kernel, flops, bytes) at every launch:
-# the kernels run through ctypes, where no dispatcher-level counter sees
-# them.
-launch_costs: list = []
+from dcae_tpu_torch.utils.profiling import sinks
 
 
 def note_launch(name: str, flops: int, *tensors) -> None:
-    """Tell the cost counts in progress of one launch: its operations (an
-    FMA is two) and the bytes of `tensors`, each read or written once."""
-    if launch_costs:
+    """Tell the registered sinks (utils/profiling.py) of one launch: its
+    operations (an FMA is two) and the bytes of `tensors`, each read or
+    written once. The kernels run through ctypes, where no
+    dispatcher-level counter sees them."""
+    if sinks:
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
-        for hook in launch_costs:
-            hook(name, int(flops), int(nbytes))
+        for sink in list(sinks):
+            sink.launch(name, int(flops), int(nbytes))
 
 
 def wrappers() -> dict:

@@ -36,6 +36,7 @@ from dcae_tpu_torch.entropy.ops import dp_noise
 from dcae_tpu_torch.models.codec import resolve_device
 from dcae_tpu_torch.parallel import multihost
 from dcae_tpu_torch.parallel.spatial import bands
+from dcae_tpu_torch.utils.profiling import span
 
 BUCKET_BYTES = 25 << 20
 
@@ -159,8 +160,9 @@ def _gradients_averaged(model: torch.nn.Module, mesh: Mesh):
 
     def reduce_all() -> None:
         queued[0] = False
-        all_reduce_mean_([p.grad for p in params if p.grad is not None],
-                         mesh)
+        with span("train.allreduce"):
+            all_reduce_mean_([p.grad for p in params if p.grad is not None],
+                             mesh)
 
     def hook(_) -> None:
         if not queued[0]:

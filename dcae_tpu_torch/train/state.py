@@ -24,6 +24,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from dcae_tpu_torch.utils.profiling import span
+
 Schedule = Callable[[int], float]
 
 
@@ -165,15 +167,16 @@ def apply_updates(state: TrainState, tx: OptimizerSpec) -> None:
     the main group's gradients clipped by their own global norm, the main
     Adam at the schedule's value for the step count before the update,
     then the aux Adam; step += 1."""
-    main = [p for p in state.main_params() if p.grad is not None]
-    if tx.clip_max_norm > 0 and main:
-        clip_by_global_norm_([p.grad for p in main], tx.clip_max_norm)
-    for group in state.main_opt.param_groups:
-        group["lr"] = tx.schedule(state.step)
-    state.main_opt.step()
-    if state.aux_opt is not None:
-        state.aux_opt.step()
-    state.step += 1
+    with span("train.update"):
+        main = [p for p in state.main_params() if p.grad is not None]
+        if tx.clip_max_norm > 0 and main:
+            clip_by_global_norm_([p.grad for p in main], tx.clip_max_norm)
+        for group in state.main_opt.param_groups:
+            group["lr"] = tx.schedule(state.step)
+        state.main_opt.step()
+        if state.aux_opt is not None:
+            state.aux_opt.step()
+        state.step += 1
 
 
 # ---------------------------------------------------------------------------

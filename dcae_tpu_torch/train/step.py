@@ -11,6 +11,7 @@ from dcae_tpu_torch.models.dcae import DCAE
 from dcae_tpu_torch.train.losses import rate_distortion_loss
 from dcae_tpu_torch.train.state import (OptimizerSpec, TrainState,
                                         apply_updates)
+from dcae_tpu_torch.utils.profiling import span
 
 
 def make_loss_fn(model: DCAE, lmbda: float, metric: str = "mse",
@@ -61,8 +62,10 @@ def make_train_step(model: DCAE, tx: OptimizerSpec, lmbda: float,
     def train_step(state: TrainState, batch: torch.Tensor):
         for p in model.parameters():
             p.grad = None
-        loss, metrics = loss_fn(batch, state.generator)
-        loss.backward()
+        with span("train.forward"):
+            loss, metrics = loss_fn(batch, state.generator)
+        with span("train.backward"):
+            loss.backward()
         apply_updates(state, tx)
         return state, {k: v.detach() for k, v in metrics.items()}
 

@@ -1,6 +1,11 @@
 """Profiling and timing harness, the JAX package's utils/profiling.py on
-torch.profiler:
+torch.profiler, and the port's one registry of spans and counters:
 
+  * sinks                what records: each a Sink; nothing records, and no
+                         clock is read, while the list is empty
+  * span(name)           a host-clock span around a phase of the program
+  * count(name, n)       a counter of the program
+  * registered(sink)     the sink registered for a block
   * trace(logdir)        torch.profiler over the block: a Chrome trace and
                          the per-op table (op_stats.json) into logdir
   * op_stats(logdir)     device time by op type, by group, the longest ops
@@ -11,7 +16,7 @@ torch.profiler:
   * sdpa_call(...)       one SDPA call on the windows of a wmsa input: the
                          library yardstick of the window kernels
   * cost_analysis(...)   FLOPs (FlopCounterMode, plus each hand kernel's
-                         registered count, which that counter cannot see)
+                         count, read by a sink: that counter cannot see it)
                          and an estimate of the bytes the dispatched ops
                          read and write
   * report(fn, ...)      time + costs -> effective TFLOP/s and GB/s
@@ -25,10 +30,77 @@ import json
 import os
 import subprocess
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+
+class Sink:
+    """What a registered sink is told: every program span as it closes,
+    every counter step and every hand-kernel launch (ops/kernels:
+    note_launch). A subclass overrides what it records."""
+
+    def span(self, name: str, start: float, end: float) -> None:
+        """A span closed: its name, its start and end on the host clock
+        (time.perf_counter). Spans nest by their intervals."""
+
+    def count(self, name: str, n: int) -> None:
+        """A counter stepped by n."""
+
+    def launch(self, name: str, flops: int, nbytes: int) -> None:
+        """A hand kernel was queued: its operations (an FMA is two) and
+        the bytes of its operands and results, each once."""
+
+
+# the registered sinks; the program records into them, and nowhere else
+sinks: List[Sink] = []
+
+
+# the span while no sink is registered: enters and exits, nothing else
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return None
+
+    def __exit__(self, *exc) -> None:
+        end = time.perf_counter()
+        for sink in list(sinks):
+            sink.span(self.name, self.start, end)
+        return None
+
+
+def span(name: str):
+    """A context manager around a phase of the program, timed on the host
+    clock and handed to every sink when it closes (on an exception too).
+    With no sink registered it is one shared object that reads no clock.
+    It never waits for the device: it times the host's work, queueing
+    included."""
+    return _Span(name) if sinks else _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Step the counter `name` by n in every sink (none registered:
+    nothing)."""
+    if sinks:
+        for sink in list(sinks):
+            sink.count(name, int(n))
+
+
+@contextlib.contextmanager
+def registered(sink: Sink):
+    """Register `sink` for the block."""
+    sinks.append(sink)
+    try:
+        yield sink
+    finally:
+        sinks.remove(sink)
 
 
 def op_type(name: str) -> str:
@@ -194,21 +266,20 @@ def sdpa_call(x, rel, heads: int, shifted: bool):
 
 def cost_analysis(fn: Callable, *args) -> Dict:
     """One run of fn(*args), counted: {"flops": FlopCounterMode's count
-    plus the hand kernels' registered counts (ops/kernels: note_launch),
-    "bytes_accessed": the operands and results of every dispatched op that
+    plus the hand kernels' counts (ops/kernels: note_launch, read by a
+    sink), "bytes_accessed": the operands and results of every dispatched op that
     is not a view, and of every hand kernel launch (an estimate: what a
     cache keeps counts again), "kernel_flops": the hand kernels' share}."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
     from torch.utils.flop_counter import FlopCounterMode
 
-    from dcae_tpu_torch.ops.kernels import launch_costs
-
     kernels = {"flops": 0, "bytes": 0}
 
-    def on_launch(_name: str, flops: int, nbytes: int) -> None:
-        kernels["flops"] += flops
-        kernels["bytes"] += nbytes
+    class _Launches(Sink):
+        def launch(self, name: str, flops: int, nbytes: int) -> None:
+            kernels["flops"] += flops
+            kernels["bytes"] += nbytes
 
     class _Bytes(TorchDispatchMode):
         nbytes = 0
@@ -222,12 +293,9 @@ def cost_analysis(fn: Callable, *args) -> Dict:
                     if torch.is_tensor(t))
             return out
 
-    launch_costs.append(on_launch)
-    try:
-        with FlopCounterMode(display=False) as flops, _Bytes():
-            force_sync(fn(*args))
-    finally:
-        launch_costs.remove(on_launch)
+    with registered(_Launches()), FlopCounterMode(display=False) as flops, \
+            _Bytes():
+        force_sync(fn(*args))
     return {"flops": float(flops.get_total_flops() + kernels["flops"]),
             "bytes_accessed": float(_Bytes.nbytes + kernels["bytes"]),
             "kernel_flops": float(kernels["flops"])}
