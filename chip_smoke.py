@@ -268,6 +268,31 @@ CONV_GLU_CASES = [
     ("DCA GLU", 32, 48, 640, 1280, "float32", 10),
 ]
 BATCH = 2
+# conv2d_nhwc at the codec cell's shapes: a batch of 8 768x512 images, the
+# latent's 32 x 48 (the hyper synthesis at 16 x 24); (label, H, W, C_in,
+# C_out, k, act, launches of the shape per compress + decompress: two
+# passes of the entropy side, 105 routed convolutions each)
+CONV2D_BATCH = 8
+CONV2D_CASES = [
+    *((f"slice conv1 C{c}", 32, 48, c, 224, 3, "gelu", 4)
+      for c in (960, 1024, 1088, 1152, 1216)),
+    *((f"lrp conv1 C{c + 64}", 32, 48, c + 64, 224, 3, "gelu", 2)
+      for c in (960, 1024, 1088, 1152, 1216)),
+    ("slice conv2", 32, 48, 224, 128, 3, "gelu", 30),
+    ("slice conv3", 32, 48, 128, 64, 3, "none", 30),
+    ("DCA 1x1", 32, 48, 640, 640, 1, "none", 40),
+    ("DCA in_trans", 32, 48, 640, 640, 1, "gelu", 30),
+    ("DCA proj", 32, 48, 2560, 640, 1, "none", 10),
+    ("h_z_s conv1", 16, 24, 192, 96, 1, "relu", 12),
+    ("h_z_s conv2", 16, 24, 96, 96, 3, "relu", 12),
+    ("h_z_s conv3", 16, 24, 96, 192, 1, "none", 12),
+    ("h_z_s stack conv", 16, 24, 192, 192, 3, "none", 4),
+]
+# conv2d_nhwc launches of one pass of the entropy side at any widths: 45 in
+# the slice nets, 40 in the dictionary attention, 20 in the hyper
+# synthesis; the staged encoder leaves out the last slice's LRP net
+CONV2D_PASS = 105
+CONV2D_STAGED_COMPRESS = CONV2D_PASS - 3
 # the training path: f32, batch 8 of 256x256 crops; launches a step forward
 TRAIN_BATCH = 8
 WMSA_TRAIN_CASES = [
@@ -493,6 +518,7 @@ def kernel_phase(gen) -> dict:
               f"{share_text(row)}", flush=True)
         results["conv_glu"].append(row)
         del x, p, got, want, again
+    results["conv2d_nhwc"] = conv2d_rows(gen)
     bad = [r["case"] for rows in results.values() for r in rows
            if not r["ok"]]
     if bad:
@@ -500,6 +526,62 @@ def kernel_phase(gen) -> dict:
     train_kernel_rows(results, gen)
     results.update(rans_phase())
     return results
+
+
+def conv2d_rows(gen) -> list:
+    """conv2d_nhwc at CONV2D_CASES against its plain statement (cuDNN f32,
+    TF32 off): error against it and against f64, bitwise repeat, batch
+    invariance (each image alone equals its place in the batch), ms, the
+    f32 FMA bound and the 3xTF32 ceiling."""
+    import torch
+    from dcae_tpu_torch.ops.kernels.conv2d_nhwc import (conv2d_nhwc,
+                                                        conv2d_nhwc_ref)
+
+    rows = []
+    B = CONV2D_BATCH
+    for label, H, W, C, N, k, act, per_run in CONV2D_CASES:
+        x = torch.randn((B, H, W, C), generator=gen).cuda()
+        b = (C * k * k) ** -0.5
+        w = _uniform(gen, (N, C, k, k), b, "cuda")
+        bias = _uniform(gen, (N,), b, "cuda")
+        with torch.no_grad():
+            got = conv2d_nhwc(x, w, bias, act=act)
+            want = conv2d_nhwc_ref(x, w, bias, act=act)
+            f64 = conv2d_nhwc_ref(x.double(), w.double(), bias.double(),
+                                  act=act)
+            repeat = all(torch.equal(got, conv2d_nhwc(x, w, bias, act=act))
+                         for _ in range(2))
+            alone = all(torch.equal(conv2d_nhwc(x[i:i + 1], w, bias,
+                                                act=act), got[i:i + 1])
+                        for i in range(B))
+            err = rel_err(got, want)
+            scale = float(f64.abs().max())
+            flops = 2 * B * H * W * N * k * k * C
+            nbytes = 4 * (x.numel() + got.numel() + w.numel() + N)
+            b_ms, b_by = bound(nbytes, flops, "float32")
+            row = {"case": f"{label} float32", "rel_err": err,
+                   "max_abs_err": float((got - want).abs().max()),
+                   "f64_err": float((got - f64).abs().max()) / scale,
+                   "plain_f64_err": float((want - f64).abs().max()) / scale,
+                   "tol": TOL["float32"], "bitwise_repeat": repeat,
+                   "batch_invariant": alone,
+                   "ok": bool(torch.isfinite(got).all()) and repeat and
+                   alone and err <= TOL["float32"],
+                   "main_path": True, "per_run": per_run,
+                   "ms": time_ms(lambda: conv2d_nhwc(x, w, bias, act=act)),
+                   "plain_ms": time_ms(lambda: conv2d_nhwc_ref(
+                       x, w, bias, act=act), iters=3, warmup=1),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        rates(row, flops, flops)
+        print(f"conv2d_nhwc {row['case']}: rel err {err:.3e} (tol "
+              f"{TOL['float32']:.0e}), against f64 {row['f64_err']:.3e} "
+              f"(plain {row['plain_f64_err']:.3e}), bitwise repeat "
+              f"{repeat}, batch invariant {alone} ms {row['ms']:.4f} plain "
+              f"{row['plain_ms']:.4f} bound {b_ms:.4f} ({b_by}) "
+              f"{row['tflops']:.1f} TFLOP/s, {share_text(row)}", flush=True)
+        rows.append(row)
+        del x, w, bias, got, want, f64
+    return rows
 
 
 def time_backward_ms(forward, grad_out, iters: int = 3) -> float:
@@ -907,6 +989,8 @@ def kernel_summary(results: dict, launches: dict,
                      "dcae_tpu/ops/pallas/conv_glu.py:190"),
         "wmsa_attention": ("dcae_tpu_torch/csrc/wmsa_block.cu",
                            "dcae_tpu/ops/pallas/wmsa_v3.py:215"),
+        # no TPU kernel: the JAX package leaves convolutions to XLA
+        "conv2d_nhwc": ("dcae_tpu_torch/csrc/conv2d_nhwc.cu", "none (XLA)"),
         # XLA loops in the JAX package, not Pallas kernels
         "rans_lanes_decode": ("dcae_tpu_torch/csrc/rans_lanes.cu",
                               "dcae_tpu/entropy/device_decode.py:153"),
@@ -936,6 +1020,8 @@ def kernel_summary(results: dict, launches: dict,
                                           "tflops", "bound_share",
                                           "tf32x3_ceiling_ms",
                                           "least_share", "bitwise_repeat",
+                                          "batch_invariant", "f64_err",
+                                          "plain_f64_err",
                                           "host_coder_ms", "chain_steps",
                                           "step_ns", "step_cycles",
                                           "sm_clock_mhz", "smem_bytes",
@@ -1034,8 +1120,12 @@ def exact(enc_record, dec_record, n: int) -> bool:
 
 
 def check_counts(what: str, counts: dict, want: dict) -> None:
-    if counts != want:
-        fail(f"{what}: launch counts {counts}, want {want}")
+    """The launch counts of the kernels `want` names must equal it; those
+    of kernels it leaves out (conv2d_nhwc off the codec paths) are not
+    held."""
+    got = {k: counts.get(k) for k in want}
+    if got != want:
+        fail(f"{what}: launch counts {got}, want {want} (all: {counts})")
 
 
 def quality(x_hat, imgs: np.ndarray, nbytes: int) -> tuple:
@@ -1052,7 +1142,9 @@ def quality(x_hat, imgs: np.ndarray, nbytes: int) -> tuple:
 
 def run_staged(codec, imgs: np.ndarray, label: str, want: dict) -> dict:
     """The staged compress -> .bin files -> per-slice decompress, counted
-    and timed; exact decode and the launch counts `want` per direction."""
+    and timed; exact decode and the launch counts `want` per direction
+    (the compress without the last slice's LRP net: three conv2d_nhwc
+    launches fewer)."""
     from dcae_tpu_torch.runtime.container import read_bin, save_bin
 
     cfg = codec.cfg
@@ -1097,7 +1189,8 @@ def run_staged(codec, imgs: np.ndarray, label: str, want: dict) -> dict:
     print(f"{label}: " + json.dumps(res), flush=True)
     if not ok:
         fail(f"{label}: decoded indexes/symbols differ from the encoder's")
-    check_counts(f"{label} compress", enc_counts, want)
+    check_counts(f"{label} compress", enc_counts,
+                 {**want, "conv2d_nhwc": CONV2D_STAGED_COMPRESS})
     check_counts(f"{label} decompress", dec_counts, want)
     res["strings"] = enc["strings"]
     res["x_hat"] = dec["x_hat"]
@@ -1231,7 +1324,7 @@ def run_interleaved(codec, imgs: np.ndarray, staged: dict,
     B, H, W, _ = imgs.shape
     S = cfg.num_slices
     x_dev = codec._input(imgs)
-    zero = {"wmsa_attention": 0}
+    zero = {"wmsa_attention": 0, "conv2d_nhwc": CONV2D_PASS}
     want_enc = {"wmsa_block": 15, "conv_glu": 17, "rans_lanes_encode": S,
                 "rans_lanes_decode": 0, **zero}
     want_dec = {"wmsa_block": 15, "conv_glu": 17, "rans_lanes_encode": 0,
@@ -1390,7 +1483,7 @@ def slice_phase() -> dict:
     out = {}
     no_lanes = {"rans_lanes_encode": 0, "rans_lanes_decode": 0}
     want = {"wmsa_block": 15, "conv_glu": 17, "wmsa_attention": 0,
-            **no_lanes}
+            "conv2d_nhwc": CONV2D_PASS, **no_lanes}
     t0 = time.perf_counter()
     codec = DCAECodec(DCAEConfig(), dtype=torch.bfloat16, seed=0)
     codec.update()
@@ -1410,7 +1503,7 @@ def slice_phase() -> dict:
     codec.update()
     attn = run_staged(codec, imgs, "attention-only",
                       {"wmsa_block": 0, "conv_glu": 17, "wmsa_attention": 15,
-                       **no_lanes})
+                       "conv2d_nhwc": CONV2D_PASS, **no_lanes})
     codec.close()
     d_bpp = abs(attn["bpp"] - staged["bpp"]) / staged["bpp"]
     d_psnr = abs(attn["psnr_db"] - staged["psnr_db"])
@@ -3721,7 +3814,8 @@ def tools_phase() -> dict:
 # launches of one compress + decompress of the default codec: the classic
 # format, and the interleaved profile (a lane coder a slice each way)
 BENCH_PAIR = {"wmsa_block": 30, "conv_glu": 34, "wmsa_attention": 0,
-              "rans_lanes_encode": 0, "rans_lanes_decode": 0}
+              "rans_lanes_encode": 0, "rans_lanes_decode": 0,
+              "conv2d_nhwc": 2 * CONV2D_PASS}
 BENCH_IL_PAIR = {**BENCH_PAIR, "rans_lanes_encode": 5,
                  "rans_lanes_decode": 5}
 
@@ -3921,7 +4015,8 @@ def main() -> int:
         paths = {"wmsa_block": "staged", "conv_glu": "staged",
                  "wmsa_attention": "attention_only",
                  "rans_lanes_encode": "interleaved",
-                 "rans_lanes_decode": "interleaved"}
+                 "rans_lanes_decode": "interleaved",
+                 "conv2d_nhwc": "interleaved"}
         launches = {k: slice_res[paths[k]]["launches_compress"][k]
                     + slice_res[paths[k]]["launches_decompress"][k]
                     for k in results}

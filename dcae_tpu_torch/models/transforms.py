@@ -5,6 +5,7 @@ cc_*_transforms.{i}.{0,2,4})."""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from dcae_tpu_torch.config import DCAEConfig
@@ -73,7 +74,9 @@ class HyperSynthesis(nn.Sequential):
 
 
 class SliceNet(nn.Sequential):
-    """3-conv GELU context net (cc_mean / cc_scale / lrp)."""
+    """3-conv GELU context net (cc_mean / cc_scale / lrp). Each GELU runs
+    inside the conv before it (Conv's `act`); modules 1 and 3 keep the
+    reference's indices."""
 
     def __init__(self, cfg: DCAEConfig, in_ch: int):
         h1, h2 = cfg.cc_hidden
@@ -82,3 +85,7 @@ class SliceNet(nn.Sequential):
             Conv(h1, h2, 3), nn.GELU(),
             Conv(h2, cfg.slice_dim, 3),
         )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self[0](x, act="gelu")
+        return self[4](self[2](x, act="gelu"))

@@ -40,8 +40,7 @@ class ResidualBottleneckBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.skip is None else self.skip(x)
-        h = F.relu(self.conv1(x))
-        h = F.relu(self.conv2(h))
+        h = self.conv2(self.conv1(x, act="relu"), act="relu")
         return self.conv3(h) + identity
 
 

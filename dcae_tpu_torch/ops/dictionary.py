@@ -41,8 +41,7 @@ class ConvWithDW(nn.Module):
         self.out_trans = Conv(dim, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = gelu(self.in_trans(x))
-        h = gelu(self.dw_conv(h))
+        h = gelu(self.dw_conv(self.in_trans(x, act="gelu")))
         return self.out_trans(h)
 
 

@@ -20,6 +20,7 @@ def note_launch(name: str, flops: int, *tensors) -> None:
 def wrappers() -> dict:
     """Every kernel wrapper by name; each counts its kernel's launches in
     its `.launches` attribute."""
+    from dcae_tpu_torch.ops.kernels.conv2d_nhwc import conv2d_nhwc
     from dcae_tpu_torch.ops.kernels.conv_glu import conv_glu
     from dcae_tpu_torch.ops.kernels.rans_lanes import (rans_lanes_decode,
                                                        rans_lanes_encode)
@@ -29,4 +30,5 @@ def wrappers() -> dict:
     return {"wmsa_block": wmsa_block, "conv_glu": conv_glu,
             "wmsa_attention": wmsa_attention,
             "rans_lanes_encode": rans_lanes_encode,
-            "rans_lanes_decode": rans_lanes_decode}
+            "rans_lanes_decode": rans_lanes_decode,
+            "conv2d_nhwc": conv2d_nhwc}

@@ -3,6 +3,10 @@
 Public tensors are NHWC, as in the JAX package. A convolution views its
 NHWC input as NCHW with channels_last strides (a permute, no copy), which
 is the layout cuDNN's NHWC kernels take, and permutes the result back.
+An f32 stride-1 1x1 or 3x3 convolution that needs no gradient goes
+through the conv2d_nhwc kernel instead, with the activation after it
+(ops/kernels/conv2d_nhwc.py: `routes`); on the CPU that wrapper runs the
+same F.conv2d and activation.
 
 Conv pads k//2 on both sides (torch Conv2d(padding=k//2)); Deconv is
 ConvTranspose2d(k, s, padding=k//2, output_padding=s-1), so it upsamples
@@ -19,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dcae_tpu_torch.ops.kernels.conv2d_nhwc import ACTS, conv2d_nhwc, routes
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, torch nn.GELU's default."""
@@ -26,15 +32,20 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Conv2d):
-    """NHWC conv, torch geometry: padding k//2 on both sides."""
+    """NHWC conv, torch geometry: padding k//2 on both sides. forward's
+    `act` ("none", "gelu", "relu") is the activation that follows the conv
+    in its module, applied here so that the kernel path fuses it."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5,
                  stride: int = 1, groups: int = 1, bias: bool = True):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
                          padding=kernel_size // 2, groups=groups, bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    def forward(self, x: torch.Tensor, act: str = "none") -> torch.Tensor:
+        if routes(self, x):
+            return conv2d_nhwc(x, self.weight, self.bias, act=act)
+        return ACTS[act](super().forward(x.permute(0, 3, 1, 2))
+                         .permute(0, 2, 3, 1))
 
 
 class Deconv(nn.ConvTranspose2d):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from dcae_tpu_torch.ops.kernels import conv2d_nhwc as cv
 from dcae_tpu_torch.ops.kernels import conv_glu as cg
 from dcae_tpu_torch.ops.kernels import wmsa_attention as wa
 from dcae_tpu_torch.ops.kernels import wmsa_block as wm
@@ -1085,3 +1086,159 @@ def test_sp_over_cards_equals_one_card(card, tmp_path, n):
     # test_dp_over_cards_equals_one_card
     assert g / g_scale <= 1e-5
     assert p_max <= 2 * 2.1 and p99 <= 1e-3
+
+
+# ------------------------------------------------------------ conv2d_nhwc --
+
+# every shape the codec cell routes (a batch of 8 768x512 images: the
+# latent at 32 x 48, the hyper synthesis at 16 x 24): (H, W, C_in, C_out,
+# k, act)
+CONV2D_SHAPES = [
+    *((32, 48, c, 224, 3, "gelu") for c in range(960, 1281, 64)),
+    (32, 48, 224, 128, 3, "gelu"), (32, 48, 128, 64, 3, "none"),
+    (32, 48, 640, 640, 1, "none"), (32, 48, 640, 640, 1, "gelu"),
+    (32, 48, 2560, 640, 1, "none"),
+    (16, 24, 192, 96, 1, "relu"), (16, 24, 96, 96, 3, "relu"),
+    (16, 24, 96, 192, 1, "none"), (16, 24, 192, 192, 3, "none")]
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain statement in f32 on the card: cuDNN with TF32 off."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        yield
+
+
+def _conv_args(rng, shape, C, N, k):
+    b = (C * k * k) ** -0.5
+    x = torch.from_numpy(rng.normal(size=(*shape, C)).astype(
+        np.float32)).cuda()
+    w, bias = _args(rng, torch.float32, [
+        ((N, C, k, k), lambda r, s: _uniform(r, s, b)),
+        ((N,), lambda r, s: _uniform(r, s, b))])
+    return x, w, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,N,k,act", CONV2D_SHAPES)
+def test_conv2d_nhwc_at_the_codec_cells_shapes(card, no_tf32, H, W, C, N, k,
+                                               act):
+    """Within 1e-5 of max|plain| of the plain f32 statement, bitwise
+    repeatable, and batch-invariant: each image alone equals its place in
+    the batch of 8, bit for bit. One launch counted a call."""
+    rng = np.random.default_rng(40)
+    x, w, bias = _conv_args(rng, (8, H, W), C, N, k)
+    with torch.no_grad():
+        before = cv.conv2d_nhwc.launches
+        got = cv.conv2d_nhwc(x, w, bias, act=act)
+        assert cv.conv2d_nhwc.launches == before + 1
+        assert _rel_err(got, cv.conv2d_nhwc_ref(x, w, bias, act=act)) <= 1e-5
+        for _ in range(2):
+            assert torch.equal(got, cv.conv2d_nhwc(x, w, bias, act=act))
+        for i in range(8):
+            assert torch.equal(cv.conv2d_nhwc(x[i:i + 1], w, bias, act=act),
+                               got[i:i + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(shape=(1, 1, 1), C=8, N=8, k=3),          # one pixel: all padding
+    dict(shape=(3, 5, 7), C=6, N=5, k=3),          # 4-byte loads, odd N
+    dict(shape=(2, 9, 11), C=40, N=33, k=1, bias=False),
+    dict(shape=(2, 17, 13), C=36, N=300, k=3),     # M, N past whole tiles
+    dict(shape=(2, 12, 10), C=64, N=24, k=3, view=96),   # a channel slice
+    dict(shape=(2, 12, 10), C=48, N=16, k=1, view=49)])  # ... unaligned
+@pytest.mark.parametrize("act", ["none", "gelu", "relu"])
+def test_conv2d_nhwc_any_shape(card, no_tf32, case, act):
+    """Widths and extents off the model's: C_in not a multiple of 4, C_out
+    odd and past a tile, no bias, one pixel, and x a channel slice of a
+    wider NHWC tensor (read in place, any alignment)."""
+    rng = np.random.default_rng(41)
+    C, N, k = case["C"], case["N"], case["k"]
+    wide, w, bias = _conv_args(rng, case["shape"], case.get("view", C), N, k)
+    x = wide[..., case.get("view", C) - C:]
+    w = w[:, :C].contiguous() if "view" in case else w
+    bias = bias if case.get("bias", True) else None
+    with torch.no_grad():
+        got = cv.conv2d_nhwc(x, w, bias, act=act)
+        want = cv.conv2d_nhwc_ref(x, w, bias, act=act)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert _rel_err(got, want) <= 1e-5
+    assert torch.equal(got, cv.conv2d_nhwc(x, w, bias, act=act))
+
+
+@pytest.mark.cuda
+def test_conv2d_nhwc_refuses(card):
+    rng = np.random.default_rng(42)
+    x, w, bias = _conv_args(rng, (1, 4, 4), 8, 8, 3)
+    with pytest.raises(ValueError):
+        cv.conv2d_nhwc(x, w.requires_grad_(), bias)     # a gradient wanted
+    w = w.detach()
+    with pytest.raises(TypeError):
+        cv.conv2d_nhwc(x.bfloat16(), w.bfloat16(), bias.bfloat16())
+    with pytest.raises(ValueError):
+        cv.conv2d_nhwc(x, torch.zeros((8, 8, 5, 5), device="cuda"), bias)
+    with pytest.raises(ValueError):
+        cv.conv2d_nhwc(x, w, bias, act="tanh")
+
+
+@pytest.mark.cuda
+def test_conv2d_nhwc_launches_of_a_pass(card):
+    """A forward of the model with bf16 transforms launches the kernel for
+    the entropy side's 105 convolutions; a training forward, none."""
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.dcae import DCAE
+
+    model = DCAE(DCAEConfig.tiny(compute_dtype="bfloat16"))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.set_transform_dtype(torch.bfloat16)
+    model.cuda()
+    x = torch.rand((1, 64, 64, 3), device="cuda")
+    before = cv.conv2d_nhwc.launches
+    with torch.no_grad():
+        model(x)
+    assert cv.conv2d_nhwc.launches == before + 105
+    model(x, training=True, generator=torch.Generator("cuda").manual_seed(1))
+    assert cv.conv2d_nhwc.launches == before + 105
+
+
+@pytest.mark.cuda
+def test_sigma_indexes_agree_with_the_plain_path(card, no_tf32, monkeypatch):
+    """The scale net of slice 0 at full widths and the cell's shape, its
+    last layer set so that sigma spans the scale table (drawn weights put
+    every index at 0): the table indexes from the kernel path equal those
+    from the plain path (cuDNN f32) on at least 99.9% of the symbols."""
+    import dcae_tpu_torch.ops.layers as layers
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.entropy import gaussian
+    from dcae_tpu_torch.models.dcae import reset_modules
+    from dcae_tpu_torch.models.transforms import SliceNet
+
+    cfg = DCAEConfig()
+    net = SliceNet(cfg, cfg.support_dim(0))
+    reset_modules(net, torch.Generator().manual_seed(0))
+    net.cuda().requires_grad_(False)
+    support = torch.randn((8, 32, 48, cfg.support_dim(0)),
+                          generator=torch.Generator().manual_seed(1)).cuda()
+    table = torch.from_numpy(gaussian.get_scale_table()).cuda()
+    last = net[4]
+    with torch.no_grad():
+        std = net(support).std(dim=(0, 1, 2))
+        # channel c centred on a table scale, spread +-30%: log-spaced over
+        # the whole table
+        centre = torch.exp(torch.linspace(np.log(0.15), np.log(200.0),
+                                          cfg.slice_dim, device="cuda"))
+        last.weight.mul_((0.3 * centre / std)[:, None, None, None])
+        last.bias.copy_(centre)
+        before = cv.conv2d_nhwc.launches
+        got = gaussian.build_indexes(net(support), table)
+        assert cv.conv2d_nhwc.launches == before + 3
+        monkeypatch.setattr(layers, "routes", lambda conv, x: False)
+        want = gaussian.build_indexes(net(support), table)
+    counts = torch.bincount(want.flatten().long(), minlength=64)
+    assert int((counts > 0).sum()) >= 60       # the table is spanned
+    agree = float((got == want).float().mean())
+    print(f"sigma -> index: {100 * agree:.4f}% of {want.numel()} symbols "
+          "agree")
+    assert agree >= 0.999

@@ -20,6 +20,7 @@ import torch
 
 from dcae_tpu.ops.pallas.conv_glu import fused_conv_glu
 from dcae_tpu.ops.pallas.wmsa_v4 import _block_einsum_f32, fused_wmsa_block_v4
+from dcae_tpu_torch.ops.kernels import conv2d_nhwc as cv
 from dcae_tpu_torch.ops.kernels import conv_glu as cg
 from dcae_tpu_torch.ops.kernels import wmsa_attention as wa
 from dcae_tpu_torch.ops.kernels import wmsa_block as wm
@@ -127,7 +128,7 @@ def test_conv_glu_ref_matches_pallas(apply_ln):
 
 
 @pytest.mark.parametrize("kernel", ["wmsa_block", "wmsa_attention",
-                                    "conv_glu"])
+                                    "conv_glu", "conv2d_nhwc"])
 def test_wrapper_takes_plain_version_on_cpu(kernel):
     """A CPU tensor runs the plain statement (bitwise) and launches
     nothing; a tensor elsewhere than CPU or CUDA raises."""
@@ -142,9 +143,14 @@ def test_wrapper_takes_plain_version_on_cpu(kernel):
         args = _wmsa_torch_args(_wmsa_params(rng, 32, 4))[3:]
         fn, ref, kw = wa.wmsa_attention, wa.wmsa_attention_ref, dict(
             heads=4, shifted=True)
-    else:
+    elif kernel == "conv_glu":
         args = _glu_torch_args(_glu_params(rng, 32, 64))
         fn, ref, kw = cg.conv_glu, cg.conv_glu_ref, dict(apply_ln=True)
+    else:
+        args = (torch.from_numpy(rng.normal(size=(24, 32, 3, 3)).astype(
+            np.float32)), torch.from_numpy(rng.normal(size=24).astype(
+                np.float32)))
+        fn, ref, kw = cv.conv2d_nhwc, cv.conv2d_nhwc_ref, dict(act="gelu")
     before = fn.launches
     assert torch.equal(fn(x, *args, **kw), ref(x, *args, **kw))
     assert fn.launches == before
