@@ -1,10 +1,15 @@
-"""Model configuration of the DCAE codec (the PyTorch port's own copy).
+"""Model configurations of the port: DCAEConfig, the DCAE codec (the
+PyTorch port's own copy of the JAX package's), and TCMConfig, the TCM
+codec (Liu et al., CVPR 2023), which only the port has. The model a codec
+builds is chosen by the configuration's type (models/base.py:
+build_model).
 
-Same fields and defaults as the JAX package's configuration, minus its
-TPU-only switches: the port launches its hand-written kernels whenever the
-tensors lie on a CUDA device, so there is nothing to turn on. One field
-chooses between two kernel paths: `fused_attention_block`, the explicit
-counterpart of the JAX package's DCAE_PALLAS_V4 environment variable.
+DCAEConfig has the same fields and defaults as the JAX package's
+configuration, minus its TPU-only switches: the port launches its
+hand-written kernels whenever the tensors lie on a CUDA device, so there
+is nothing to turn on. One field chooses between two kernel paths:
+`fused_attention_block`, the explicit counterpart of the JAX package's
+DCAE_PALLAS_V4 environment variable.
 """
 
 from __future__ import annotations
@@ -127,5 +132,88 @@ class DCAEConfig:
             eb_channels=16,
             eb_init_scale=10.0,
         )
+        base.update(overrides)
+        return cls(**base)
+
+
+@dataclasses.dataclass(frozen=True)
+class TCMConfig:
+    """Hyperparameters of the TCM codec (Liu, Sun, Katto, "Learned Image
+    Compression with Mixed Transformer-CNN Architectures", CVPR 2023).
+
+    Defaults are the published large model, TCM-L: N=128 (each mixed
+    block splits 2N = 256 channels into a convolution half and a Swin
+    half), M=320, `config` (the published name) two mixed blocks a stage,
+    head_dim per stage, window 8 (main) / 4 with head_dim 32 (hyper), the
+    SWAtten entropy blocks at 128 channels with head_dim 16, 5 slices.
+    Fields the codec reads share DCAEConfig's names and meanings."""
+
+    N: int = 128
+    M: int = 320
+    num_slices: int = 5
+    max_support_slices: int = 5
+    config: Tuple[int, int, int, int, int, int] = (2, 2, 2, 2, 2, 2)
+    head_dim: Tuple[int, int, int, int, int, int] = (8, 16, 32, 32, 16, 8)
+    window_size: int = 8
+    hyper_window_size: int = 4
+    hyper_head_dim: int = 32
+    atten_head_dim: int = 16
+    atten_inter_dim: int = 128
+    in_channels: int = 3
+    out_channels: int = 3
+
+    # per-slice context-transform hidden widths (cc_mean/cc_scale/lrp nets)
+    cc_hidden: Tuple[int, int] = (224, 128)
+
+    eb_channels: int = 192
+    eb_filters: Tuple[int, ...] = (3, 3, 3, 3)
+    eb_init_scale: float = 10.0
+    eb_tail_mass: float = 1e-9
+
+    scales_min: float = 0.11
+    scales_max: float = 256.0
+    scales_levels: int = 64
+    gc_tail_mass: float = 1e-9
+
+    drift_noise: float = 0.0
+
+    # compute dtype of g_a / h_a / g_s; the entropy side always runs f32
+    compute_dtype: str = "float32"
+
+    @property
+    def slice_dim(self) -> int:
+        return self.M // self.num_slices
+
+    def support_dim(self, slice_index: int) -> int:
+        """Channels into slice i's SWAtten blocks: a hyper prior map (M)
+        and the earlier decoded slices."""
+        return self.M + self.slice_dim * min(slice_index,
+                                             self.max_support_slices)
+
+    @property
+    def y_downsample(self) -> int:
+        """Total stride of g_a: four stride-2 units."""
+        return 16
+
+    @property
+    def hyper_ratio(self) -> int:
+        return 4
+
+    @property
+    def z_downsample(self) -> int:
+        return self.y_downsample * self.hyper_ratio
+
+    @property
+    def pad_multiple(self) -> int:
+        # windows at y-resolution need divisibility by window_size
+        return self.y_downsample * self.window_size
+
+    @classmethod
+    def tiny(cls, **overrides) -> "TCMConfig":
+        """A small config for unit tests (same topology, tiny widths; the
+        windows stay 8 / 4, so images need 256 px a side)."""
+        base = dict(N=8, M=20, head_dim=(4, 4, 4, 4, 4, 4),
+                    hyper_head_dim=4, atten_head_dim=4, atten_inter_dim=8,
+                    cc_hidden=(16, 12), eb_channels=16)
         base.update(overrides)
         return cls(**base)

@@ -53,16 +53,16 @@ from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from dcae_tpu_torch.config import DCAEConfig
+from dcae_tpu_torch.config import DCAEConfig, TCMConfig
 from dcae_tpu_torch.entropy import device_decode, rans
 from dcae_tpu_torch.entropy.gaussian import get_scale_table
 from dcae_tpu_torch.entropy.tables import CodecTables, build_codec_tables
-from dcae_tpu_torch.models.dcae import DCAE, HALF_TRANSFORMS
+from dcae_tpu_torch.models.base import HALF_TRANSFORMS, build_model
 from dcae_tpu_torch.ops.kernels.rans_lanes import to_u16, to_u32
 from dcae_tpu_torch.utils.profiling import count, sinks, span
 
@@ -118,11 +118,13 @@ def _unflatten_chw(flat: np.ndarray, h: int, w: int, c: int) -> np.ndarray:
 class DCAECodec:
     """Owns the model, its coding tables and the host coder's threads."""
 
-    def __init__(self, cfg: DCAEConfig, params=None,
+    def __init__(self, cfg: Union[DCAEConfig, TCMConfig], params=None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
                  device=None, patch_cap: int = 512,
                  tables: Optional[CodecTables] = None):
-        """params: a state dict in the port's (= the reference's) naming,
+        """cfg: the model's configuration, which chooses the model (DCAE or
+        TCM, models/base.py: build_model).
+        params: a state dict in the port's (= the reference's) naming,
         values numpy arrays or tensors (utils.convert builds one from Flax
         params or a reference checkpoint); None draws a seeded random init.
         A state dict without any g_s.* (or without any g_a.* / h_a.*) keys
@@ -143,7 +145,7 @@ class DCAECodec:
         omit = () if params is None else tuple(
             n for n in HALF_TRANSFORMS
             if not any(k.startswith(n + ".") for k in params))
-        model = DCAE(cfg, omit=omit)
+        model = build_model(cfg, omit=omit)
         if params is None:
             model.reset_parameters(torch.Generator().manual_seed(seed))
         else:

@@ -1242,3 +1242,63 @@ def test_sigma_indexes_agree_with_the_plain_path(card, no_tf32, monkeypatch):
     print(f"sigma -> index: {100 * agree:.4f}% of {want.numel()} symbols "
           "agree")
     assert agree >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("dtype,heads", [("bfloat16", 16), ("bfloat16", 8),
+                                         ("bfloat16", 4), ("float32", 8)])
+def test_wmsa_block_kernel_at_tcm_widths(card, dtype, heads, shifted):
+    """TCM's window-8 blocks: C = 128 with head_dim 8 / 16 / 32 in the bf16
+    transforms, head_dim 16 in the f32 SWAtten blocks; the bars above."""
+    test_wmsa_block_kernel(card, 128, heads, dtype, shifted)
+
+
+@pytest.mark.cuda
+def test_tcm_request_against_the_reference(card):
+    """One request of the TCM cell (batch 8 of 768x512, TCM-L with bf16
+    transforms and seeded weights) through compress_device and
+    decompress_interleaved, judged by the benchmark's TCM judge against
+    the plain reference under the cell's own limits."""
+    import dataclasses
+    import json
+    import os
+    import sys
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        from harness import corpus, tcm_weights
+        from reference import tcm_check
+    finally:
+        sys.path.remove(bench)
+    from dcae_tpu_torch.config import TCMConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+
+    cfg = TCMConfig(compute_dtype="bfloat16")
+    c = dataclasses.asdict(cfg)
+    x = corpus.synthetic_kodak(8, 512, 768, seed=20)
+    codec = DCAECodec(cfg, params=tcm_weights.make(c, 21, "cuda"),
+                      device="cuda", patch_cap=8 * 32 * 48 * cfg.slice_dim)
+    codec.update()
+    keep = {}
+    fn = codec.model.decode_device_streams
+
+    def decode(*a, **k):
+        keep["out"] = fn(*a, **k)
+        return keep["out"]
+
+    enc = codec.compress_device(x)
+    codec.model.decode_device_streams = decode
+    dec = codec.decompress_interleaved(enc)
+    assert bool(dec["ok"])
+    y_hat, _, idxs, syms = keep["out"]
+    got = tcm_check.judge(c, tcm_weights.make(c, 21, "cuda"), [{
+        "x": x, "enc": enc, "y_hat": y_hat.cpu(), "idxs": idxs.cpu(),
+        "syms": syms.cpu(), "x_hat": dec["x_hat"].cpu()}], "cuda")
+    limits = json.load(open(os.path.join(
+        bench, "workloads", "tcm-bf16.kodak-b8-interleaved.json")))["checks"]
+    print(f"TCM request judged: {got}")
+    for name, lim in limits.items():
+        assert got[name] <= lim, (name, got[name], lim)
