@@ -25,7 +25,8 @@ encode_arrays (the split and fused encoders), decode_start / decode_step /
 decode_end (the per-slice decoder, which the staged encoder replays),
 decode_all (the shipped-index decoder), latent_decompress (the latent
 hand-off) and encode_device_streams / decode_device_streams (the
-interleaved profile: the y streams are entropy-coded on the device).
+interleaved profile: the y streams are entropy-coded on the device; on the
+card decode_device_streams replays a CUDA graph, models/entropy_graph.py).
 Tensors are NHWC, as in the JAX package.
 
 Precision split: `dtype` (bf16 on the card) applies only to the one-sided
@@ -46,6 +47,7 @@ from torch import nn
 from dcae_tpu_torch.entropy import gaussian
 from dcae_tpu_torch.entropy.bottleneck import EntropyBottleneck
 from dcae_tpu_torch.entropy.ops import draw_noise, ste_round
+from dcae_tpu_torch.models import entropy_graph
 from dcae_tpu_torch.models.transforms import GAnalysis, GSynthesis
 from dcae_tpu_torch.ops.blocks import WMSA, Scale
 from dcae_tpu_torch.ops.dictionary import DictionaryCrossAttention
@@ -452,7 +454,29 @@ class ChannelARModel(nn.Module):
         device, the all-slices checksum (every stream consumed exactly and
         every lane back at 2^16); idxs (S, B, yh, yw, sd) int8 and syms
         (same, int32) are the per-slice chains the certified encoder
-        codes."""
+        codes.
+
+        On the card, with no gradient wanted, the pass is captured once a
+        (direction, shape) key as a CUDA graph and replayed, its outputs
+        copied out of the graph (models/entropy_graph.py); elsewhere it
+        runs eagerly, bitwise alike."""
+        a = dict(z_hat=z_hat, words=words, n_words=n_words, states=states,
+                 patch_pos=patch_pos, patch_val=patch_val, override=override,
+                 true_y=true_y, lut_sym=lut_sym, lut_sf=lut_sf,
+                 scale_table=scale_table, unroll=unroll, paired=paired,
+                 chained=chained)
+        if not z_hat.is_cuda:
+            return self._entropy_pass(**a)
+        graphs = self.__dict__.get("_entropy_graphs")
+        if graphs is None:
+            graphs = self._entropy_graphs = entropy_graph.PassGraphs()
+        return graphs.run(self, a)
+
+    def _entropy_pass(self, z_hat: torch.Tensor, words, n_words, states,
+                      patch_pos, patch_val, override: bool, true_y, lut_sym,
+                      lut_sf, scale_table, unroll: int = 1,
+                      paired: bool = False, chained: bool = False):
+        """decode_device_streams run eagerly."""
         from dcae_tpu_torch.entropy.device_decode import (
             RANS_L16, decode_interleaved, decode_interleaved_chain)
         from dcae_tpu_torch.ops.kernels.rans_lanes import bool_all, u32_bits

@@ -1302,3 +1302,301 @@ def test_tcm_request_against_the_reference(card):
     print(f"TCM request judged: {got}")
     for name, lim in limits.items():
         assert got[name] <= lim, (name, got[name], lim)
+
+
+# ------------------------------------------------------- entropy graph --
+# The entropy pass (ChannelARModel.decode_device_streams) replayed from a
+# CUDA graph (models/entropy_graph.py), at the codec cells' shape: batch 8
+# of 768x512, bf16 transforms, seeded weights, DCAE and TCM.
+
+def _kodak(n_batches: int, seed: int):
+    import os
+    import sys
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        from harness import corpus
+    finally:
+        sys.path.remove(bench)
+    return [corpus.synthetic_kodak(8, 512, 768, seed=seed + i)
+            for i in range(n_batches)]
+
+
+@pytest.fixture(scope="module", params=["dcae", "tcm"])
+def cell_codec(request):
+    """(codec, two requests) of a codec cell's model."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from dcae_tpu_torch.config import DCAEConfig, TCMConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+
+    cfg = (TCMConfig if request.param == "tcm" else DCAEConfig)(
+        compute_dtype="bfloat16")
+    codec = DCAECodec(cfg, device="cuda",
+                      patch_cap=8 * 32 * 48 * cfg.slice_dim)
+    codec.update()
+    yield codec, _kodak(2, 31)
+    codec.close()
+    del codec
+    torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def _pass_args(codec, x, override: bool) -> dict:
+    """decode_device_streams' arguments as the codec passes them (certified
+    encoder's replay, or the decoder of compress_device's streams)."""
+    common = dict(scale_table=codec._scale_table, unroll=2, paired=True,
+                  chained=True)
+    if override:
+        y, _, z_hat = codec.model.encode_analysis(codec._input(x))
+        return dict(z_hat=z_hat, words=None, n_words=None, states=None,
+                    patch_pos=None, patch_val=None, override=True, true_y=y,
+                    lut_sym=None, lut_sf=None, **common)
+    words, n_words, states, ppos, pval, luts, _, _, z_hat = \
+        codec._interleaved_inputs(codec.compress_device(x))
+    return dict(z_hat=z_hat, words=words, n_words=n_words, states=states,
+                patch_pos=ppos, patch_val=pval, override=False, true_y=None,
+                lut_sym=luts[0], lut_sf=luts[1], **common)
+
+
+def _same_pass(got, want) -> None:
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+class _EntropyRecords:
+    """A sink of the program's counts and launch records."""
+
+    def __init__(self):
+        from dcae_tpu_torch.utils import profiling
+
+        class Sink(profiling.Sink):
+            def __init__(s):
+                s.counts, s.launches = {}, []
+
+            def count(s, name, n):
+                s.counts[name] = s.counts.get(name, 0) + n
+
+            def launch(s, name, flops, nbytes):
+                s.launches.append((name, flops, nbytes))
+
+        self.sink = Sink()
+        self._ctx = profiling.registered(self.sink)
+
+    def __enter__(self):
+        self._ctx.__enter__()
+        return self.sink
+
+    def __exit__(self, *exc):
+        return self._ctx.__exit__(*exc)
+
+
+@pytest.mark.cuda
+def test_entropy_graph_replays_equal_the_eager_pass(cell_codec):
+    """Both directions of two requests: the first call of a key captures
+    and replays, later ones replay; each equals the eager pass bitwise."""
+    from dcae_tpu_torch.models import entropy_graph as eg
+
+    codec, xs = cell_codec
+    model = codec.model
+    args = [_pass_args(codec, x, o) for x in xs for o in (True, False)]
+    keys = {eg.key(model.cfg, a) for a in args}
+    model._entropy_graphs = eg.PassGraphs()
+    with _EntropyRecords() as rec, torch.no_grad():
+        for a in args + args:
+            _same_pass(model.decode_device_streams(**a),
+                       model._entropy_pass(**a))
+    assert rec.counts.get("codec.entropy.captured") == len(keys)
+    assert rec.counts.get("codec.entropy.replayed") == 2 * len(args)
+    assert "codec.entropy.eager" not in rec.counts
+    with _EntropyRecords() as rec:                  # under autograd
+        got = model.decode_device_streams(**args[0])
+    assert rec.counts == {"codec.entropy.eager": 1} and len(got) == 4
+
+
+@pytest.mark.cuda
+def test_entropy_graph_outputs_outlive_the_next_request(cell_codec):
+    """Two requests on one key: the first's returned tensors are as they
+    were after the second ran."""
+    from dcae_tpu_torch.models import entropy_graph as eg
+
+    codec, xs = cell_codec
+    model = codec.model
+    for override in (True, False):
+        a, b = (_pass_args(codec, x, override) for x in xs)
+        if not override:       # one patch width: the scatter drops -1
+            P = max(a["patch_pos"].shape[1], b["patch_pos"].shape[1])
+            a, b = ({**t, "patch_pos": torch.nn.functional.pad(
+                t["patch_pos"], (0, P - t["patch_pos"].shape[1]), value=-1),
+                "patch_val": torch.nn.functional.pad(
+                t["patch_val"], (0, P - t["patch_val"].shape[1]))}
+                for t in (a, b))
+        assert eg.key(model.cfg, a) == eg.key(model.cfg, b)
+        with torch.no_grad():
+            first = model.decode_device_streams(**a)
+            kept = [t.clone() for t in first]
+            second = model.decode_device_streams(**b)
+            _same_pass(first, kept)
+            _same_pass(second, model._entropy_pass(**b))
+        assert not torch.equal(first[0], second[0])
+
+
+@pytest.mark.cuda
+def test_graphed_and_eager_coders_decode_each_other(cell_codec,
+                                                    monkeypatch):
+    """The certified encoder graphed and eager write the same streams, and
+    each decodes on the other's decoder with ok and the same image."""
+    from dcae_tpu_torch.models import entropy_graph as eg
+
+    codec, xs = cell_codec
+    x = xs[0]
+    enc_g = codec.compress_device(x)
+    dec_gg = codec.decompress_interleaved(enc_g)
+    with monkeypatch.context() as m:
+        m.setattr(eg, "engages", lambda cfg, a: False)
+        enc_e = codec.compress_device(x)
+        dec_ge = codec.decompress_interleaved(enc_g)
+    dec_eg = codec.decompress_interleaved(enc_e)
+    assert enc_g["istreams"] == enc_e["istreams"]
+    assert np.array_equal(enc_g["states"], enc_e["states"])
+    assert all(np.array_equal(p[0], q[0]) and np.array_equal(p[1], q[1])
+               for p, q in zip(enc_g["patches"], enc_e["patches"]))
+    for dec in (dec_gg, dec_ge, dec_eg):
+        assert bool(dec["ok"])
+        assert torch.equal(dec["x_hat"], dec_gg["x_hat"])
+
+
+@pytest.mark.cuda
+def test_entropy_graph_follows_a_weight_swap(cell_codec):
+    """After load_state_dict(assign=True) with other entropy-side weights,
+    and after a round trip through .to(), the next call captures again and
+    equals the eager pass on the weights the model now holds."""
+    from dcae_tpu_torch.models import entropy_graph as eg
+
+    codec, xs = cell_codec
+    model = codec.model
+    model._entropy_graphs = eg.PassGraphs()
+    a = _pass_args(codec, xs[0], True)
+    original = {k: v.clone() for k, v in model.state_dict().items()}
+    try:
+        with _EntropyRecords() as rec, torch.no_grad():
+            before = model.decode_device_streams(**a)
+            model.load_state_dict(
+                {k: v * 1.01 if k.startswith("cc_mean_transforms.") else v
+                 for k, v in original.items()}, assign=True)
+            swapped = model.decode_device_streams(**a)
+            _same_pass(swapped, model._entropy_pass(**a))
+            assert not torch.equal(swapped[3], before[3])
+            model.to("cpu").to("cuda")
+            moved = model.decode_device_streams(**a)
+            _same_pass(moved, swapped)
+        assert rec.counts.get("codec.entropy.captured") == 3
+    finally:
+        model.load_state_dict(original, assign=True)
+    with torch.no_grad():
+        _same_pass(model.decode_device_streams(**a), before)
+
+
+@pytest.mark.cuda
+def test_entropy_graph_counts_the_launches_of_the_eager_pass(cell_codec):
+    """The kernel wrappers' launch counters and the sinks' launch records
+    step alike for an eager pass, a capture and a replay; a record's bytes
+    differ only where the lane decoder reads the padded word buffer."""
+    from dcae_tpu_torch.models import entropy_graph as eg
+    from dcae_tpu_torch.ops.kernels import wrappers
+
+    codec, xs = cell_codec
+    model = codec.model
+    model._entropy_graphs = eg.PassGraphs()
+    for override in (True, False):
+        a = _pass_args(codec, xs[1], override)
+        steps = []
+        for fn in (model._entropy_pass, model.decode_device_streams,
+                   model.decode_device_streams):
+            before = {n: f.launches for n, f in wrappers().items()}
+            with _EntropyRecords() as rec, torch.no_grad():
+                fn(**a)
+            steps.append(({n: f.launches - before[n]
+                           for n, f in wrappers().items()},
+                          sorted(rec.launches)))
+        (eager, eager_rec), (capture, capture_rec), (replay, replay_rec) = \
+            steps
+        assert eager == capture == replay and capture_rec == replay_rec
+        assert [r[:2] for r in eager_rec] == [r[:2] for r in replay_rec]
+        words = 0 if override else 2 * a["words"].shape[0] * (
+            eg.words_width(model.cfg, a["z_hat"]) - a["words"].shape[1])
+        assert sum(r[2] for r in replay_rec) - sum(r[2] for r in eager_rec) \
+            == words
+        assert [r for r in eager_rec if r[0] != "rans_lanes_decode"] == \
+            [r for r in replay_rec if r[0] != "rans_lanes_decode"]
+        assert eager["conv2d_nhwc"] > 0
+        assert eager["rans_lanes_decode"] == (0 if override
+                                              else model.cfg.num_slices)
+
+
+@pytest.mark.cuda
+def test_entropy_graph_capture_and_replay_read_nothing_back(cell_codec):
+    """Under torch.cuda.set_sync_debug_mode("error") a capture (after the
+    eager pass's lazy uploads) and its replays make the host wait for the
+    device nowhere."""
+    from dcae_tpu_torch.models import entropy_graph as eg
+
+    codec, xs = cell_codec
+    model = codec.model
+    args = [_pass_args(codec, xs[0], o) for o in (True, False)]
+    model._entropy_graphs = eg.PassGraphs()
+    with torch.no_grad():
+        want = [model._entropy_pass(**a) for a in args]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            got = [[model.decode_device_streams(**a) for a in args]
+                   for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for rnd in got:
+        for g, w in zip(rnd, want):
+            _same_pass(g, w)
+
+
+@pytest.mark.cuda
+def test_entropy_graph_replays_from_threads(cell_codec):
+    """Six threads replay one key's graph in turns, with a short switch
+    interval: every result equals the eager pass (the static buffers are
+    taken by one replay at a time)."""
+    import sys
+    import threading
+
+    codec, xs = cell_codec
+    model = codec.model
+    args = [_pass_args(codec, x, True) for x in xs]
+    with torch.no_grad():
+        want = [model._entropy_pass(**a) for a in args]
+    errors, done = [], []
+
+    def work(i):
+        try:
+            with torch.no_grad():
+                for r in range(3):
+                    got = model.decode_device_streams(**args[(i + r) % 2])
+                    _same_pass(got, want[(i + r) % 2])
+            done.append(i)
+        except Exception as e:          # reported by the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and sorted(done) == list(range(6))
