@@ -18,7 +18,8 @@ The two loops run in ops/kernels/rans_lanes.py: CUDA kernels for CUDA
 tensors, the plain PyTorch statement for CPU tensors. Here are the table
 builders (numpy, byte-equal to the JAX package's), the format's functions
 with the JAX package's names and argument order (the row tables take the
-places of the JAX package's slot and enc_sf tables), and the escape-patch
+places of the JAX package's slot and enc_sf tables; no unroll or paired
+argument, below), and the escape-patch
 side channel. build_slot_tables and build_enc_tables stay as the JAX
 package's counterparts: the row tables are held against them. The decoder
 returns an `ok` flag (the stream was consumed exactly AND every lane is
@@ -30,9 +31,9 @@ Unsigned quantities are carried as signed tensors with the same bits
 ops/kernels/rans_lanes.py); the functions here also take numpy arrays and
 torch unsigned tensors and convert. Not carried over from the JAX module,
 because they shape the XLA loop and change no bit: the word-select
-variants and their switches, the f32-reciprocal division and `unroll` as a
-loop shape (`unroll` and `paired` are still taken, since both ride the
-container, and the results are the same for every value).
+variants and their switches, the f32-reciprocal division, and the loops'
+`unroll` and `paired` arguments (both ride the container, which writes
+and checks them: runtime/container.py).
 """
 
 from __future__ import annotations
@@ -155,9 +156,7 @@ def _scalar_i32(v, device) -> torch.Tensor:
 
 
 def _decode(words, n_words, states, indexes, lut_sym, lut_df, lanes: int,
-            unroll: int, check_base: bool):
-    if int(unroll) < 1:
-        raise ValueError(f"unroll {unroll}")
+            check_base: bool):
     dev = indexes.device
     return rans_lanes_decode(
         u16_bits(words, dev).reshape(-1).contiguous(),
@@ -169,26 +168,22 @@ def _decode(words, n_words, states, indexes, lut_sym, lut_df, lanes: int,
 
 
 def decode_interleaved(words, n_words, states, indexes, lut_sym, lut_df,
-                       lanes: int, unroll: int = 1, paired: bool = False
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       lanes: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode indexes.numel() symbols from one interleaved stream.
 
     words: (W,) uint16 bits (W >= n_words; padding ignored); n_words: the
     true word count (int or () tensor); states: (lanes,) uint32 bits, the
     decode-start states; indexes: (n,) int CDF row per symbol in stream
     order; lut_sym / lut_df: build_row_tables' pair (row offsets, table),
-    where the JAX package takes build_slot_tables' pair. unroll (symbols a
-    lane per loop iteration in the JAX package) and paired (its slot
-    tables' layout) change nothing here. Returns (symbols (n,) int32, ok
-    () bool)."""
+    where the JAX package takes build_slot_tables' pair. Returns (symbols
+    (n,) int32, ok () bool)."""
     syms, ok, _ = _decode(words, n_words, states, indexes, lut_sym, lut_df,
-                          lanes, unroll, True)
+                          lanes, True)
     return syms, ok
 
 
 def decode_interleaved_chain(words, n_words, states, indexes, lut_sym,
-                             lut_df, lanes: int, unroll: int = 1,
-                             paired: bool = False
+                             lut_df, lanes: int
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """One CHAINED slice decode: like decode_interleaved, but the lane
@@ -198,11 +193,11 @@ def decode_interleaved_chain(words, n_words, states, indexes, lut_sym,
     the LAST slice equal the 2^16 base. Returns (symbols, ok_stream,
     final_states (K,) int32 bits)."""
     return _decode(words, n_words, states, indexes, lut_sym, lut_df, lanes,
-                   unroll, False)
+                   False)
 
 
 def encode_interleaved_device(symbols, indexes, enc_sf, offsets, maxpos,
-                              stride: int, lanes: int, unroll: int = 1):
+                              stride: int, lanes: int):
     """K-lane interleaved rANS ENCODE on the device, bit-identical to the
     C++ encoder's streams. symbols / indexes: (n,) int in stream order;
     enc_sf: build_row_tables' table (where the JAX package takes
@@ -224,19 +219,18 @@ def encode_interleaved_device(symbols, indexes, enc_sf, offsets, maxpos,
     in_range = (pos >= 0) & (pos < maxpos[idx1])
     pos_c = torch.clamp(pos, 0, stride - 1)
     return _encode_core(pos_c, idx1, in_range, u32_bits(enc_sf, dev),
-                        stride, K=lanes, U=max(1, int(unroll)))
+                        K=lanes)
 
 
-def _encode_core(pos_c, idx1, in_range, enc_sf, stride: int, K: int,
-                 U: int = 1, init_states=None):
+def _encode_core(pos_c, idx1, in_range, enc_sf, K: int, init_states=None):
     """encode_interleaved_device's engine, taking bucket positions already
     CLAMPED into [0, stride) and a validity mask, so callers that clamp for
     the patch list (encode_slices_with_patches) do not look the rows up
     twice. init_states (K,) uint32 bits: the lane states to start from;
     the chained format feeds slice s+1's final encode states in as slice
-    s's; None = the 2^16 base. enc_sf: build_row_tables' table. U is the
-    JAX loop's unroll and changes nothing, and so does stride here (a
-    position past a row's buckets reads as none)."""
+    s's; None = the 2^16 base. enc_sf: build_row_tables' table. The JAX
+    function's stride is not taken: a position past a row's buckets reads
+    as none."""
     dev = idx1.device
     return rans_lanes_encode(
         pos_c.reshape(-1).to(torch.int32).contiguous(),
@@ -248,12 +242,11 @@ def _encode_core(pos_c, idx1, in_range, enc_sf, stride: int, K: int,
 
 
 def encode_slices_with_patches(y_syms, idxs, enc_sf, offsets, maxpos,
-                               stride: int, lanes: int, unroll: int,
-                               patch_cap: int, chain: bool = False) -> dict:
+                               stride: int, lanes: int, patch_cap: int,
+                               chain: bool = False) -> dict:
     """Per-slice interleaved rANS encode with the escape-patch side
-    channel (shared by DCAE.encode_device_streams and the certified
-    re-encode of models/codec.py). Queues device work only: nothing here
-    waits for the device.
+    channel (the lane encoder of models/codec.py compress_device). Queues
+    device work only: nothing here waits for the device.
 
     y_syms: (S, ...) int true symbols; idxs: (S, ...) int coding-index
     rows (flattened per slice). Each symbol is clamped into its row's
@@ -311,8 +304,8 @@ def encode_slices_with_patches(y_syms, idxs, enc_sf, offsets, maxpos,
     # encodes are strictly sequential (encode order S-1 .. 0)
     for s in reversed(range(S)):
         w_l[s], nw_l[s], st, esc_l[s] = _encode_core(
-            pos_cl[s], idx2[s], row_ok[s], enc_sf, stride, K=lanes,
-            U=max(1, int(unroll)), init_states=st if chain else None)
+            pos_cl[s], idx2[s], row_ok[s], enc_sf, K=lanes,
+            init_states=st if chain else None)
         st_l[s] = st
     return {
         "words": torch.stack(w_l),

@@ -24,9 +24,10 @@ Plus the pieces the real codec drives: encode_analysis, encode_rest /
 encode_arrays (the split and fused encoders), decode_start / decode_step /
 decode_end (the per-slice decoder, which the staged encoder replays),
 decode_all (the shipped-index decoder), latent_decompress (the latent
-hand-off) and encode_device_streams / decode_device_streams (the
-interleaved profile: the y streams are entropy-coded on the device; on the
-card decode_device_streams replays a CUDA graph, models/entropy_graph.py).
+hand-off) and decode_device_streams (the interleaved profile: the y
+streams are entropy-decoded on the device, and the device encoder replays
+the same pass; on the card it replays a CUDA graph,
+models/entropy_graph.py).
 Tensors are NHWC, as in the JAX package.
 
 Precision split: `dtype` (bf16 on the card) applies only to the one-sided
@@ -377,48 +378,9 @@ class ChannelARModel(nn.Module):
         """g_s, clipped to [0, 1]."""
         return torch.clamp(self._run(self.g_s, y_hat), 0.0, 1.0)
 
-    def encode_device_streams(self, x: torch.Tensor, scale_table, enc_sf,
-                              enc_offsets, enc_maxpos, stride: int,
-                              lanes: int, unroll: int = 1,
-                              patch_cap: int = 128, chain: bool = False
-                              ) -> dict:
-        """The whole ENCODE on the device, entropy coding included:
-        encode_arrays (analysis, every slice's symbols and indexes), then
-        the K-lane interleaved rANS encode of every slice
-        (entropy/device_decode.py encode_slices_with_patches, streams
-        bit-identical to the C++ encoder's). The host then fetches streams
-        of entropy size instead of raw symbols. Queues device work only.
-
-        Out-of-table symbols (Gaussian-tail outliers that the classic
-        format bypass-codes) do not invalidate the profile: the STREAM
-        carries the symbol clamped into its row's in-range buckets, and a
-        per-slice patch list (flat position + true value, <= patch_cap
-        entries) rides alongside, so the decoder restores the exact symbol
-        right after entropy decode and the y_hat chain stays that of the
-        classic path. patch_count > patch_cap sets patch_overflow; escape
-        fires only for rows with no in-range bucket at all.
-
-        Returns encode_slices_with_patches' tensors plus "y_symbols" (the
-        true symbols), "z_symbols" and "z_hat". The fetch tier narrow_z
-        (an int8 copy of the z symbols for a slow host link) is left out:
-        it changes no output."""
-        from dcae_tpu_torch.entropy.device_decode import \
-            encode_slices_with_patches
-
-        out = self.encode_arrays(x, scale_table)
-        res = encode_slices_with_patches(
-            out["y_symbols"], out["y_indexes"], enc_sf, enc_offsets,
-            enc_maxpos, stride, lanes, unroll, patch_cap, chain=chain)
-        res["y_symbols"] = out["y_symbols"]
-        res["z_symbols"] = out["z_symbols"]
-        medians = self.eb_medians().reshape(1, 1, 1, -1)
-        res["z_hat"] = out["z_symbols"].to(torch.float32) + medians
-        return res
-
     def decode_device_streams(self, z_hat: torch.Tensor, words, n_words,
                               states, patch_pos, patch_val, override: bool,
                               true_y, lut_sym, lut_sf, scale_table,
-                              unroll: int = 1, paired: bool = False,
                               chained: bool = False):
         """Slice contexts + entropy decode of the K-lane interleaved rANS
         streams ON THE DEVICE (entropy/device_decode.py): the channel-AR
@@ -430,9 +392,10 @@ class ChannelARModel(nn.Module):
         words: (S, W) uint16 bits, per-slice streams (padded); n_words:
         (S,) int32 true word counts; states: (S, K) uint32 bits decode-start
         lane states, or (K,) when chained; patch_pos / patch_val: (S, P)
-        int32 escape patches (see encode_device_streams): true symbol
-        values scattered over the clamped stream symbols right after
-        entropy decode; rows whose position is out of range are dropped.
+        int32 escape patches (entropy/device_decode.py
+        encode_slices_with_patches): true symbol values scattered over the
+        clamped stream symbols right after entropy decode; rows whose
+        position is out of range are dropped.
 
         override / true_y (bool / (B, yh, yw, M) f32) exist for the
         ENCODER: the sigma -> index chain is only bit-stable when the same
@@ -463,8 +426,7 @@ class ChannelARModel(nn.Module):
         a = dict(z_hat=z_hat, words=words, n_words=n_words, states=states,
                  patch_pos=patch_pos, patch_val=patch_val, override=override,
                  true_y=true_y, lut_sym=lut_sym, lut_sf=lut_sf,
-                 scale_table=scale_table, unroll=unroll, paired=paired,
-                 chained=chained)
+                 scale_table=scale_table, chained=chained)
         if not z_hat.is_cuda:
             return self._entropy_pass(**a)
         graphs = self.__dict__.get("_entropy_graphs")
@@ -474,8 +436,7 @@ class ChannelARModel(nn.Module):
 
     def _entropy_pass(self, z_hat: torch.Tensor, words, n_words, states,
                       patch_pos, patch_val, override: bool, true_y, lut_sym,
-                      lut_sf, scale_table, unroll: int = 1,
-                      paired: bool = False, chained: bool = False):
+                      lut_sf, scale_table, chained: bool = False):
         """decode_device_streams run eagerly."""
         from dcae_tpu_torch.entropy.device_decode import (
             RANS_L16, decode_interleaved, decode_interleaved_chain)
@@ -504,13 +465,11 @@ class ChannelARModel(nn.Module):
                 if chained:
                     flat, ok_i, chain_states = decode_interleaved_chain(
                         words[i], n_words[i], chain_states,
-                        indexes.reshape(-1), lut_sym, lut_sf, K, unroll,
-                        paired)
+                        indexes.reshape(-1), lut_sym, lut_sf, K)
                 else:
                     flat, ok_i = decode_interleaved(
                         words[i], n_words[i], states[i],
-                        indexes.reshape(-1), lut_sym, lut_sf, K, unroll,
-                        paired)
+                        indexes.reshape(-1), lut_sym, lut_sf, K)
                 ok = ok & ok_i
                 # scatter the patches; a position outside [0, n) lands in a
                 # spare slot that is cut off

@@ -621,8 +621,7 @@ class DCAECodec:
         return luts
 
     def _slot_luts(self):
-        """The lane decoder's tables. Streams of either layout that their
-        container names (paired or not) decode from these."""
+        """The lane decoder's tables: (row offsets, table)."""
         return self._lane_luts()[0]
 
     def _enc_luts(self):
@@ -630,8 +629,7 @@ class DCAECodec:
         return self._lane_luts()[1]
 
     def compress_device(self, x, lanes: Optional[int] = None,
-                        chain: bool = True, unroll: int = 2,
-                        certify: bool = True, paired: bool = True) -> dict:
+                        chain: bool = True) -> dict:
         """Encode into the interleaved profile with the y streams coded ON
         THE DEVICE: the host fetches streams of entropy size instead of raw
         symbols. Decodes with decompress_interleaved; the streams equal
@@ -644,34 +642,29 @@ class DCAECodec:
         (untrained weights) or a symbol's row has no in-range bucket at
         all: fall back to the classic format.
 
-        certify=True (default): the encoder teacher-forces THE DECODER'S
-        OWN function (DCAE.decode_device_streams, override=True) with the
-        raw latent y. That replay is the encoder's only channel-AR pass:
-        it yields the symbols (round(y - mu) under the decoder's own mu)
-        and the coding indexes, and the lane encoder then codes exactly
-        that pair. The same functions at the same shapes run the same
-        kernels and cuDNN algorithms (set_deterministic), so the real
-        decode reproduces the chain by induction, and `ok` still catches a
-        decoder that diverges. certify=False runs the encoder's own chain
-        (DCAE.encode_device_streams).
+        The encoder teacher-forces THE DECODER'S OWN function
+        (DCAE.decode_device_streams, override=True) with the raw latent y.
+        That replay is the encoder's only channel-AR pass: it yields the
+        symbols (round(y - mu) under the decoder's own mu) and the coding
+        indexes, and the lane encoder then codes exactly that pair. The
+        same functions at the same shapes run the same kernels and cuDNN
+        algorithms (set_deterministic), so the real decode reproduces the
+        chain by induction, and `ok` still catches a decoder that diverges.
 
         chain: one lane-state set for all slices (DTI2) or one a slice
-        (DTI1). unroll and paired ride the container (they shaped the JAX
-        package's decode program) and change no bit here.
+        (DTI1).
 
         Two phases, so that a serving loop can overlap batch i's fetch with
         batch i + 1's device work: _compress_device_dispatch queues
         everything and never waits for the device; _compress_device_fetch
         waits once and codes z on the host."""
         self._need("compress_device", "g_a", "h_a")
-        return self._compress_device_fetch(self._compress_device_dispatch(
-            x, lanes, chain, unroll, certify, paired))
+        return self._compress_device_fetch(
+            self._compress_device_dispatch(x, lanes, chain))
 
     @torch.no_grad()
     def _compress_device_dispatch(self, x, lanes: Optional[int] = None,
-                                  chain: bool = True, unroll: int = 2,
-                                  certify: bool = True, paired: bool = True
-                                  ) -> dict:
+                                  chain: bool = True) -> dict:
         """Phase 1 of compress_device: queue this batch's device work
         (analysis -> replay of the decoder's function -> lane encoder);
         returns the pending handle _compress_device_fetch completes. Waits
@@ -684,19 +677,13 @@ class DCAECodec:
             yd = self.cfg.y_downsample
             n_slice = B * (H // yd) * (W // yd) * self.cfg.slice_dim
             K = int(lanes or _auto_lanes(n_slice))
-            if certify:
-                y, z_symbols, z_hat = model.encode_analysis(x)
-                _, _, idxs, syms = model.decode_device_streams(
-                    z_hat, None, None, None, None, None, True, y, None, None,
-                    st, unroll, True, chain)
-                res = device_decode.encode_slices_with_patches(
-                    syms, idxs, enc_sf, offs, maxpos, stride, K, unroll,
-                    self.patch_cap, chain=chain)
-            else:
-                res = model.encode_device_streams(
-                    x, st, enc_sf, offs, maxpos, stride, K, unroll,
-                    self.patch_cap, chain)
-                z_symbols = res["z_symbols"]
+            y, z_symbols, z_hat = model.encode_analysis(x)
+            _, _, idxs, syms = model.decode_device_streams(
+                z_hat, None, None, None, None, None, True, y, None, None,
+                st, chain)
+            res = device_decode.encode_slices_with_patches(
+                syms, idxs, enc_sf, offs, maxpos, stride, K, self.patch_cap,
+                chain=chain)
             # the word and patch counts and the flags
             head = torch.cat([
                 res["n_words"], res["patch_count"],
@@ -710,8 +697,7 @@ class DCAECodec:
                 "patch_pos": res["patch_pos"], "patch_val": res["patch_val"],
                 "z_symbols": z_symbols})
             return {"host": host, "head": head, "cap": n_slice + 1, "K": K,
-                    "unroll": int(unroll), "chain": bool(chain),
-                    "paired": bool(paired)}
+                    "chain": bool(chain)}
 
     def _compress_device_fetch(self, pend: dict) -> dict:
         """Phase 2 of compress_device: wait for the dispatch's copies to
@@ -747,11 +733,13 @@ class DCAECodec:
                 "patches": [(ppos[s, :int(pcnt[s])].copy(),
                              pval[s, :int(pcnt[s])].copy()) for s in range(S)],
                 # the container's field, as the JAX package's compress_device
-                # writes it: the word-buffer bucket, the decode loop's unroll,
-                # the slot-table layout; and the lane-set layout (DTI1 / DTI2)
+                # writes it: the word-buffer bucket, its decode loop's unroll
+                # and slot-table layout (constants here: they shaped the JAX
+                # decode program and change no bit), and the lane-set layout
+                # (DTI1 / DTI2)
                 "bucket": _len_bucket(int(n_words.max()), pend["cap"]),
-                "unroll": pend["unroll"],
-                "paired": pend["paired"],
+                "unroll": 2,
+                "paired": True,
                 "chained": pend["chain"],
                 "z_strings": self._encode_z(z_sym),
                 "shape": (z_sym.shape[1], z_sym.shape[2]),
@@ -846,11 +834,11 @@ class DCAECodec:
             words = np.zeros((S, max(int(n_words.max()), 1)), np.uint16)
             for s, b in enumerate(streams):
                 words[s, :n_words[s]] = np.frombuffer(b, np.uint16)
-            # the container's field: validated, otherwise unused (eager code
-            # has no program shape to reproduce, and the slot-table layout
-            # changes no symbol)
-            unroll = int(enc.get("unroll") or 2)
-            if unroll not in (1, 2, 4, 8, 16, 32, 64):
+            # the container's unroll field (0: unspecified) is validated and
+            # otherwise unused, like its slot-table layout: both shaped the
+            # JAX decode program and change no symbol
+            unroll = int(enc.get("unroll") or 0)
+            if unroll not in (0, 1, 2, 4, 8, 16, 32, 64):
                 raise ValueError(f"interleaved stream: unroll {unroll}")
             # a 1-D state vector IS the chain header (the dict's flag wins)
             chained = bool(enc.get("chained", states.ndim == 1))
@@ -876,18 +864,18 @@ class DCAECodec:
             up = self._upload
             return (up(words.view(np.int16)), up(n_words),
                     up(states.view(np.int32)), up(ppos), up(pval), luts,
-                    unroll, chained, up(z_hat))
+                    chained, up(z_hat))
 
     @torch.no_grad()
     def _decompress_interleaved_device(self, words, n_words, states, ppos,
-                                       pval, luts, unroll: int,
-                                       chained: bool, z_hat) -> dict:
+                                       pval, luts, chained: bool, z_hat
+                                       ) -> dict:
         """The device part of decompress_interleaved: queues everything and
         waits for the device nowhere."""
         with span("codec.decode.dispatch"):
             y_hat, ok, _, _ = self.model.decode_device_streams(
                 z_hat, words, n_words, states, ppos, pval, False, None,
-                luts[0], luts[1], self._scale_table, unroll, True, chained)
+                luts[0], luts[1], self._scale_table, chained)
             return {"x_hat": self.model.decode_synthesis(y_hat), "ok": ok}
 
     # ------------------------------------------------------- serving loop --
@@ -899,12 +887,10 @@ class DCAECodec:
     # dispatched ahead, still lost to sequential calls on an H100 (PERF.md
     # §6): the loops are plain loops over those calls.
 
-    def encdec_pipeline(self, batches: Sequence, decode_interleave: int = 2,
-                        queue_depth: int = 3) -> List[dict]:
+    def encdec_pipeline(self, batches: Sequence) -> List[dict]:
         """Serving loop of the classic format: compress() then decompress()
         of each batch, in order. Returns per-batch {"strings", "shape",
-        "x_hat"}. decode_interleave and queue_depth, the JAX loop's bounds
-        on its producer, bound nothing in a plain loop."""
+        "x_hat"}."""
         self._need("encdec_pipeline", *HALF_TRANSFORMS)
         results: List[dict] = []
         for x in batches:
@@ -915,27 +901,21 @@ class DCAECodec:
                                          enc["shape"])["x_hat"]})
         return results
 
-    def encdec_pipeline_interleaved(self, batches: Sequence,
-                                    inflight: int = 3,
-                                    dispatch_ahead: int = 1, **encode_kw
-                                    ) -> List[dict]:
-        """Serving loop of the device-coding profile: compress_device
-        (encode_kw goes to its dispatch phase) then decompress_interleaved
-        of each batch, in order. A batch whose symbols do not fit the
-        profile (rans.EscapeError: untrained weights, extreme inputs) is
-        coded by the classic codec instead and tagged: every batch gets a
-        result, in order. Returns per-batch {"x_hat", "ok", "shape",
-        "profile"}, profile "interleaved" or "classic". inflight and
-        dispatch_ahead, the JAX loop's bounds on its producer, bound
-        nothing in a plain loop: the next batch's fetch waits for this
-        batch's decode, queued before it on the stream."""
+    def encdec_pipeline_interleaved(self, batches: Sequence) -> List[dict]:
+        """Serving loop of the device-coding profile: compress_device then
+        decompress_interleaved of each batch, in order. A batch whose
+        symbols do not fit the profile (rans.EscapeError: untrained
+        weights, extreme inputs) is coded by the classic codec instead and
+        tagged: every batch gets a result, in order. Returns per-batch
+        {"x_hat", "ok", "shape", "profile"}, profile "interleaved" or
+        "classic". The next batch's fetch waits for this batch's decode,
+        queued before it on the stream."""
         self._need("encdec_pipeline_interleaved", *HALF_TRANSFORMS)
         results: List[dict] = []
         for x in batches:
             x = self._input(x)
             try:
-                enc = self._compress_device_fetch(
-                    self._compress_device_dispatch(x, **encode_kw))
+                enc = self.compress_device(x)
             except rans.EscapeError:
                 c = self.compress(x)
                 d = self.decompress(c["strings"], c["shape"])

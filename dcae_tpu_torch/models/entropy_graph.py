@@ -8,13 +8,13 @@ them. The pass never reads the device from the host and its shapes follow
 from the call's, so on the card it is captured once a key as a
 torch.cuda.CUDAGraph and replayed on every later call:
 
-  key      the direction (override), the stream layout (chained, K,
-           unroll, paired), the shapes, strides and dtypes of the tensor
-           arguments, the stream words padded to compress_device's bound
-           on a slice's words (its symbols + 1), the patch list padded to
-           a power of two, the identity of the constant tables and the
-           matmul / cuDNN flags; a stream's length, or a patch count
-           within its bucket, does not change it
+  key      the direction (override), the stream layout (chained, K), the
+           shapes, strides and dtypes of the tensor arguments, the stream
+           words padded to compress_device's bound on a slice's words (its
+           symbols + 1), the patch list padded to a power of two, the
+           identity of the constant tables and the matmul / cuDNN flags; a
+           stream's length, or a patch count within its bucket, does not
+           change it
   capture  on a key's first call: one eager pass on a side stream (lazy
            inits: cuBLAS workspaces, cuDNN plans, the kernels' modules and
            device-side constants), then the capture on that stream, into
@@ -108,9 +108,8 @@ def engages(cfg, a: dict) -> bool:
 def key(cfg, a: dict) -> tuple:
     """The graph key of a call (module docstring)."""
     z, st = a["z_hat"], a["scale_table"]
-    k = (bool(a["override"]), bool(a["chained"]), int(a["unroll"]),
-         bool(a["paired"]), z.device, _sig(z), id(st), _sig(st),
-         torch.backends.cuda.matmul.allow_tf32,
+    k = (bool(a["override"]), bool(a["chained"]), z.device, _sig(z), id(st),
+         _sig(st), torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark, torch.get_float32_matmul_precision())
     if a["override"]:

@@ -9,6 +9,8 @@ compared exactly. Against dcae_tpu's compress_interleaved on the same
 weights and images: bpp within 1% and PSNR within 0.05 dB, the tolerances
 of tests/test_torch_codec.py (rounding at a symbol boundary may code a few
 symbols differently; decoding the other framework's streams is not a bar).
+Against dcae_tpu's compress_device on these weights and images the
+streams are compared exactly: they code no symbol differently.
 """
 
 import numpy as np
@@ -27,6 +29,17 @@ from dcae_tpu_torch.models.dcae import DCAE
 from dcae_tpu_torch.runtime import container
 from dcae_tpu_torch.utils.convert import state_dict_from_flax
 from tests.test_torch_codec import KW, _images
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors through many small ops beside other test processes:
+    one intra-op thread, or the workers' thread pools fight over the
+    cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -98,13 +111,12 @@ def test_roundtrip_matches_classic(codecs, chain):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(), dict(certify=False), dict(chain=False),
-    dict(chain=False, certify=False), dict(paired=False, unroll=4),
-    dict(lanes=8), dict(lanes=1)], ids=str)
+    dict(), dict(chain=False), dict(lanes=8), dict(lanes=1)], ids=str)
 def test_compress_device_matches_host_encode(codecs, kw):
     """The device's lane encoder emits the streams, states, patches and z
     of the host (C++) encoder, whatever the options, and the decode of
-    either is the classic x_hat."""
+    either is the classic x_hat. The container fields are the JAX
+    package's: unroll 2, paired slot tables."""
     _, port, x, classic = codecs
     a = port.compress_interleaved(x, lanes=kw.get("lanes"),
                                   chain=kw.get("chain", True))
@@ -113,8 +125,7 @@ def test_compress_device_matches_host_encode(codecs, kw):
     cap = _n_slice(port, x) + 1
     n_words = max(len(s) // 2 for s in b["istreams"])
     assert b["bucket"] == codec_mod._len_bucket(n_words, cap)
-    assert b["unroll"] == kw.get("unroll", 2)
-    assert b["paired"] is kw.get("paired", True)
+    assert b["unroll"] == 2 and b["paired"] is True
     assert b["chained"] is kw.get("chain", True)
     dec = port.decompress_interleaved(b)
     assert bool(dec["ok"])
@@ -149,6 +160,62 @@ def test_decoder_validates_the_container_fields(codecs):
     # a bucket that fits nothing is ignored, as is a missing field
     dec = port.decompress_interleaved({**enc, "bucket": 1, "unroll": 0})
     assert bool(dec["ok"])
+
+
+@pytest.fixture(scope="module")
+def device_one(codecs):
+    """compress_device of one image and its decode's x_hat."""
+    _, port, x, _ = codecs
+    enc = port.compress_device(x[:1])
+    return enc, port.decompress_interleaved(enc)["x_hat"]
+
+
+def _through_container(port, enc, **fields):
+    """enc with `fields` set, packed into a DTI container and unpacked."""
+    blob = container.pack_bin_interleaved({**enc, **fields}, (32, 32))
+    got, _, _ = container.unpack_bin_interleaved(
+        blob, port.cfg.pad_multiple, port.cfg.z_downsample)
+    for k, v in fields.items():
+        assert got[k] == v
+    return got
+
+
+@pytest.mark.parametrize("unroll", [0, 1, 64])
+def test_unroll_field_changes_no_bit(codecs, device_one, unroll):
+    """A container's unroll field, 0 (unspecified) or any power of two up
+    to 64, decodes to the same x_hat; 3 is refused."""
+    _, port, _, _ = codecs
+    enc, x_hat = device_one
+    dec = port.decompress_interleaved(
+        _through_container(port, enc, unroll=unroll))
+    assert bool(dec["ok"]) and torch.equal(dec["x_hat"], x_hat)
+    with pytest.raises(ValueError, match="unroll"):
+        port.decompress_interleaved({**enc, "unroll": 3})
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_paired_field_changes_no_bit(codecs, device_one, paired):
+    """Either slot-table layout named in the container decodes alike."""
+    _, port, _, _ = codecs
+    enc, x_hat = device_one
+    dec = port.decompress_interleaved(
+        _through_container(port, enc, paired=paired))
+    assert bool(dec["ok"]) and torch.equal(dec["x_hat"], x_hat)
+
+
+def test_unchained_device_encode_equals_jax(codecs, monkeypatch):
+    """The certified encoder at chain=False (DTI1) against the JAX
+    package's compress_device with its chain off: the same streams,
+    per-slice states, patches, z and container fields."""
+    jax_codec, port, x, _ = codecs
+    monkeypatch.setenv("DCAE_IL_CHAIN", "0")
+    want = jax_codec.compress_device(x)
+    got = port.compress_device(x, chain=False)
+    _same_streams(got, want)
+    assert got["states"].shape == (port.cfg.num_slices, got["lanes"])
+    for k in ("bucket", "unroll", "paired", "chained"):
+        assert got[k] == want[k]
+    assert got["chained"] is False
 
 
 # -------------------------------------------------------------- patches --
@@ -189,15 +256,14 @@ def _narrowed(port, monkeypatch, keep: int):
     monkeypatch.setattr(port, "_enc_luts", narrowed)
 
 
-@pytest.mark.parametrize("certify", [True, False])
-def test_device_encode_patches_and_clamping(codecs, monkeypatch, certify):
+def test_device_encode_patches_and_clamping(codecs, monkeypatch):
     """Clamping restricts which bucket a symbol may occupy, never its
     coded (start, freq): the decode tables read the stream and the patch
     scatter restores every true symbol, so the classic x_hat comes back."""
     _, port, x, classic = codecs
     _narrowed(port, monkeypatch, 2)
     monkeypatch.setattr(port, "patch_cap", _n_slice(port, x))
-    enc = port.compress_device(x, certify=certify)
+    enc = port.compress_device(x)
     assert sum(len(p[0]) for p in enc["patches"]) >= 1
     dec = port.decompress_interleaved(enc)
     assert bool(dec["ok"])
@@ -283,7 +349,7 @@ def test_bf16_config_roundtrip(codecs):
 
 def test_pipeline_matches_sequential(codecs):
     _, port, x, classic = codecs
-    outs = port.encdec_pipeline_interleaved([x, x], inflight=2)
+    outs = port.encdec_pipeline_interleaved([x, x])
     assert len(outs) == 2
     for o in outs:
         assert o["profile"] == "interleaved" and bool(o["ok"])
@@ -291,12 +357,11 @@ def test_pipeline_matches_sequential(codecs):
         assert torch.equal(o["x_hat"], classic)
 
 
-@pytest.mark.parametrize("ahead,inflight", [(1, 1), (2, 3), (4, 1)])
-def test_pipeline_depths(codecs, ahead, inflight):
+def test_pipeline_depths(codecs):
+    """Batches of mixed sizes, each coded at its own shape, in order."""
     _, port, x, classic = codecs
     batches = [x, x[:1], x, x[:1], x]
-    outs = port.encdec_pipeline_interleaved(batches, inflight=inflight,
-                                            dispatch_ahead=ahead)
+    outs = port.encdec_pipeline_interleaved(batches)
     assert [o["x_hat"].shape[0] for o in outs] == [2, 1, 2, 1, 2]
     assert all(bool(o["ok"]) for o in outs)
     for o in outs[::2]:
@@ -317,7 +382,7 @@ def test_pipeline_escape_falls_back_to_classic(codecs, monkeypatch):
         return orig(pend)
 
     monkeypatch.setattr(port, "_compress_device_fetch", flaky)
-    outs = port.encdec_pipeline_interleaved([x] * 3, inflight=2)
+    outs = port.encdec_pipeline_interleaved([x] * 3)
     assert [o["profile"] for o in outs] == [
         "interleaved", "classic", "interleaved"]
     for o in outs:
@@ -353,7 +418,7 @@ def test_pipeline_consumer_failure_stops_the_producer(codecs, monkeypatch):
 
     monkeypatch.setattr(port, "decompress_interleaved", boom)
     with pytest.raises(RuntimeError, match="decode died"):
-        port.encdec_pipeline_interleaved([x] * 6, inflight=1)
+        port.encdec_pipeline_interleaved([x] * 6)
 
 
 # ------------------------------------------------------- against dcae_tpu --
@@ -386,8 +451,9 @@ def test_rate_and_quality_match_jax_interleaved(codecs):
 def _enc_dicts(port, x):
     one = x[:1]
     return {"dti2_device": port.compress_device(one),
-            "dti1_device": port.compress_device(one, chain=False,
-                                                paired=False, unroll=8),
+            # other container fields than the device encoder writes
+            "dti1_device": {**port.compress_device(one, chain=False),
+                            "paired": False, "unroll": 8},
             "dti2_host": port.compress_interleaved(one),
             "dti1_host": port.compress_interleaved(one, chain=False)}
 

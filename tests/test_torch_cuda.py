@@ -383,13 +383,12 @@ def test_rans_lanes_encode_kernel(card, n, K, adversarial):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("paired", [False, True])
 @pytest.mark.parametrize("n,K", LANE_CASES)
-def test_rans_lanes_decode_kernel(card, n, K, paired):
+def test_rans_lanes_decode_kernel(card, n, K):
     """Two chained slices of the host coder's streams, padded: symbols, ok
-    and final states equal the plain version's, the symbols are the
-    encoder's, and the chain ends at the 2^16 base. The container's paired
-    flag, taken by device_decode's chained decode, changes no bit."""
+    and final states equal the plain version's (and device_decode's
+    chained decode's), the symbols are the encoder's, and the chain ends
+    at the 2^16 base."""
     from dcae_tpu_torch.entropy import device_decode as dd
     from dcae_tpu_torch.entropy import rans
     from dcae_tpu_torch.ops.kernels import rans_lanes as rl
@@ -410,7 +409,7 @@ def test_rans_lanes_decode_kernel(card, n, K, paired):
         idx_d = torch.from_numpy(data[s][1]).cuda()
         before = rl.rans_lanes_decode.launches
         chained = dd.decode_interleaved_chain(padded, nw, state_k, idx_d,
-                                              *luts, K, 2, paired)
+                                              *luts, K)
         sym_k, ok_k, state_k = rl.rans_lanes_decode(
             padded, nw, state_k, idx_d, *luts, K, s == 1)
         assert rl.rans_lanes_decode.launches == before + 2
@@ -1347,14 +1346,13 @@ def cell_codec(request):
 def _pass_args(codec, x, override: bool) -> dict:
     """decode_device_streams' arguments as the codec passes them (certified
     encoder's replay, or the decoder of compress_device's streams)."""
-    common = dict(scale_table=codec._scale_table, unroll=2, paired=True,
-                  chained=True)
+    common = dict(scale_table=codec._scale_table, chained=True)
     if override:
         y, _, z_hat = codec.model.encode_analysis(codec._input(x))
         return dict(z_hat=z_hat, words=None, n_words=None, states=None,
                     patch_pos=None, patch_val=None, override=True, true_y=y,
                     lut_sym=None, lut_sf=None, **common)
-    words, n_words, states, ppos, pval, luts, _, _, z_hat = \
+    words, n_words, states, ppos, pval, luts, _, z_hat = \
         codec._interleaved_inputs(codec.compress_device(x))
     return dict(z_hat=z_hat, words=words, n_words=n_words, states=states,
                 patch_pos=ppos, patch_val=pval, override=False, true_y=None,

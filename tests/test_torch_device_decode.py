@@ -19,6 +19,10 @@ from dcae_tpu_torch.entropy import rans
 from dcae_tpu_torch.entropy.gaussian import get_scale_table
 from dcae_tpu_torch.entropy.tables import build_gaussian_table
 from dcae_tpu_torch.ops.kernels import rans_lanes as rl
+from tests.torch_jax_coder import ensure_library
+
+# the JAX coder's library, whole before any test loads it
+ensure_library()
 
 
 def _fixture_tables(coder):
@@ -66,11 +70,11 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _decode(words, n_words, states, idx, tables, K, unroll=1, paired=False):
+def _decode(words, n_words, states, idx, tables, K):
     """The port's decode under the row tables of `tables` (CDFs)."""
     luts = dd.build_row_tables(*tables)
     out, ok = dd.decode_interleaved(_t(words), n_words, states, _t(idx),
-                                    luts[0], luts[1], K, unroll, paired)
+                                    luts[0], luts[1], K)
     return out.numpy(), bool(ok)
 
 
@@ -165,11 +169,12 @@ def test_binding_argument_checks(tables):
 @pytest.mark.parametrize("n,K", [(50_000, 1024), (49_152, 512), (777, 16),
                                  (64, 64), (5, 8), (1, 1), (20_000, 2048)])
 def test_decode_matches_jax_and_cpp(tables, n, K, paired):
+    """The port's one decode against the JAX decode under either slot
+    table layout."""
     sym, idx = _draw(tables, n, seed=100 + n)
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
     words = np.frombuffer(stream, np.uint16)
-    out, ok = _decode(words, len(words), states, idx, tables, K,
-                      paired=paired)
+    out, ok = _decode(words, len(words), states, idx, tables, K)
     jout, jok = _jdecode(words, states, idx, tables, K, paired=paired)
     assert ok and jok
     np.testing.assert_array_equal(out, jout)
@@ -183,11 +188,9 @@ def test_decode_on_the_gaussian_bank(bank):
     K = 128
     stream, states = rans.encode_interleaved(sym, idx, *bank, K)
     words = np.frombuffer(stream, np.uint16)
-    for paired in (False, True):
-        out, ok = _decode(words, len(words), states, idx, bank, K,
-                          paired=paired)
-        assert ok
-        np.testing.assert_array_equal(out, sym)
+    out, ok = _decode(words, len(words), states, idx, bank, K)
+    assert ok
+    np.testing.assert_array_equal(out, sym)
 
 
 def test_decode_padded_words(tables):
@@ -237,21 +240,34 @@ def test_checksum_flags_corruption(tables):
 
 @pytest.mark.parametrize("unroll", [1, 2, 3, 8])
 def test_unroll_identical(tables, unroll):
+    """The port's decode, which has no unroll, against the JAX decode at
+    each unroll."""
     sym, idx = _draw(tables, 10_000, seed=42)
     K = 128
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
     words = np.frombuffer(stream, np.uint16)
-    out, ok = _decode(words, len(words), states, idx, tables, K, unroll)
+    out, ok = _decode(words, len(words), states, idx, tables, K)
     jout, jok = _jdecode(words, states, idx, tables, K, unroll)
     assert ok and jok
     np.testing.assert_array_equal(out, jout)
     np.testing.assert_array_equal(out, sym)
 
 
-def test_unroll_must_be_positive(tables):
-    with pytest.raises(ValueError, match="unroll"):
-        _decode(np.zeros(1, np.uint16), 0, np.full(4, 1 << 16, np.uint32),
-                np.zeros(4, np.int32), tables, 4, unroll=0)
+def test_unroll_must_be_positive():
+    """A container's unroll field is 0 (unspecified) or a power of two up
+    to 64: decompress_interleaved refuses any other before it decodes."""
+    from dcae_tpu_torch.config import DCAEConfig
+    from dcae_tpu_torch.models.codec import DCAECodec
+
+    codec = DCAECodec(DCAEConfig.tiny(), device="cpu", seed=0)
+    enc = {"shape": (1, 1), "istreams": [b"ab"], "lanes": 4,
+           "states": np.full(4, 1 << 16, np.uint32), "z_strings": [b""]}
+    try:
+        for unroll in (-1, 128):
+            with pytest.raises(ValueError, match="unroll"):
+                codec.decompress_interleaved({**enc, "unroll": unroll})
+    finally:
+        codec.close()
 
 
 @pytest.mark.parametrize("n,K,unroll", [(50_000, 1024, 1), (777, 16, 2),
@@ -262,8 +278,7 @@ def test_decode_paired_lut_matches(tables, n, K, unroll):
     luts = jdd.build_slot_tables(*tables, paired=True)
     assert luts[1].shape == (tables[0].shape[0] * 65536, 2)
     words = np.frombuffer(stream, np.uint16)
-    out, ok = _decode(words, len(words), states, idx, tables, K, unroll,
-                      True)
+    out, ok = _decode(words, len(words), states, idx, tables, K)
     jout, jok = _jdecode(words, states, idx, tables, K, unroll, True)
     assert ok and jok
     np.testing.assert_array_equal(out, jout)
@@ -295,10 +310,10 @@ def _port_enc(tables):
     return (table, offs, *dd.enc_bounds(tables[1]))
 
 
-def _encode(sym, idx, tables, K, unroll=1):
+def _encode(sym, idx, tables, K):
     tabs = _port_enc(tables)
     buf, nw, st, esc = dd.encode_interleaved_device(
-        _t(sym), _t(idx), tabs[0], tabs[1], tabs[2], tabs[3], K, unroll)
+        _t(sym), _t(idx), tabs[0], tabs[1], tabs[2], tabs[3], K)
     return rl.to_u16(buf), int(nw), rl.to_u32(st), bool(esc)
 
 
@@ -332,7 +347,7 @@ def test_encode_matches_cpp_and_jax(tables, n, K):
     sym, idx = _draw(tables, n, seed=200 + n)
     stream, states = rans.encode_interleaved(sym, idx, *tables, K)
     tabs = dd.build_enc_tables(*tables)
-    buf, nw, st, esc = _encode(sym, idx, tables, K, unroll=2)
+    buf, nw, st, esc = _encode(sym, idx, tables, K)
     assert not esc
     assert buf[:nw][::-1].tobytes() == stream
     np.testing.assert_array_equal(st, states)
@@ -387,8 +402,8 @@ def test_encode_slices_with_patches_matches_jax(tables, chain, patch_cap):
     tabs = dd.build_enc_tables(*tables)
     port = _port_enc(tables)
     got = dd.encode_slices_with_patches(
-        _t(sym), _t(idx), port[0], port[1], port[2], port[3], K, 2,
-        patch_cap, chain=chain)
+        _t(sym), _t(idx), port[0], port[1], port[2], port[3], K, patch_cap,
+        chain=chain)
     want = jdd.encode_slices_with_patches(
         jnp.asarray(sym), jnp.asarray(idx), jnp.asarray(tabs[0]),
         jnp.asarray(tabs[1]), jnp.asarray(tabs[2]), tabs[3], K, 2,
@@ -423,12 +438,12 @@ def test_encode_slices_row_without_buckets_escapes(tables):
     idx[10] = 4
     tabs = dd.build_enc_tables(cdfs, lengths, offsets)
     port = _port_enc((cdfs, lengths, offsets))
-    args = (tabs[3], 16, 1, 8)
     got = dd.encode_slices_with_patches(_t(sym[None]), _t(idx[None]),
-                                        port[0], port[1], port[2], *args)
+                                        port[0], port[1], port[2], tabs[3],
+                                        16, 8)
     want = jdd.encode_slices_with_patches(
         jnp.asarray(sym[None]), jnp.asarray(idx[None]), jnp.asarray(tabs[0]),
-        jnp.asarray(tabs[1]), jnp.asarray(tabs[2]), *args)
+        jnp.asarray(tabs[1]), jnp.asarray(tabs[2]), tabs[3], 16, 1, 8)
     assert bool(got["escape"]) and bool(want["escape"])
 
 
@@ -470,7 +485,7 @@ class TestChainedLaneSet:
         for s in range(S):
             w = np.frombuffer(streams[s], np.uint16)
             out, ok, cur = dd.decode_interleaved_chain(
-                _t(w), len(w), cur, _t(idx[s]), luts[0], luts[1], K, 2, True)
+                _t(w), len(w), cur, _t(idx[s]), luts[0], luts[1], K)
             jout, jok, jcur = jdd.decode_interleaved_chain(
                 jnp.asarray(w), jnp.int32(len(w)), jcur, jnp.asarray(idx[s]),
                 jnp.asarray(jluts[0]), jnp.asarray(jluts[1]), K, 2, True)
@@ -481,7 +496,7 @@ class TestChainedLaneSet:
 
         tabs = _port_enc(tables)
         res = dd.encode_slices_with_patches(
-            _t(sym), _t(idx), tabs[0], tabs[1], tabs[2], tabs[3], K, 2, 16,
+            _t(sym), _t(idx), tabs[0], tabs[1], tabs[2], tabs[3], K, 16,
             chain=True)
         assert not bool(res["escape"])
         np.testing.assert_array_equal(rl.to_u32(res["states"]), header)
@@ -501,7 +516,7 @@ class TestChainedLaneSet:
         for s in range(S):
             w = np.frombuffer(streams[s], np.uint16)
             _, ok, cur = dd.decode_interleaved_chain(
-                _t(w), len(w), cur, _t(idx[s]), luts[0], luts[1], K, 2, True)
+                _t(w), len(w), cur, _t(idx[s]), luts[0], luts[1], K)
             ok_all = ok_all and bool(ok)
         # either a stream ran under or over, or the base check at the
         # chain's end catches the corruption

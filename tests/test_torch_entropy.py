@@ -25,6 +25,10 @@ from dcae_tpu_torch.models.dcae import DCAE
 from dcae_tpu_torch.runtime import container
 from dcae_tpu_torch.utils.convert import (clean_reference_state_dict,
                                           state_dict_from_flax)
+from tests.torch_jax_coder import ensure_library
+
+# the JAX coder's library, whole before any test loads it
+ensure_library()
 
 
 def test_gaussian_likelihood_matches_jax():

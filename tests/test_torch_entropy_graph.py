@@ -69,15 +69,14 @@ def _args(codec, x, override: bool, chained: bool) -> dict:
     """decode_device_streams' arguments as the codec passes them: the
     certified encoder's replay, or the decoder of compress_device's
     streams."""
-    common = dict(scale_table=codec._scale_table, unroll=2, paired=True,
-                  chained=chained)
+    common = dict(scale_table=codec._scale_table, chained=chained)
     if override:
         y, _, z_hat = codec.model.encode_analysis(codec._input(x))
         return dict(z_hat=z_hat, words=None, n_words=None, states=None,
                     patch_pos=None, patch_val=None, override=True, true_y=y,
                     lut_sym=None, lut_sf=None, **common)
     enc = codec.compress_device(x, chain=chained)
-    words, n_words, states, ppos, pval, luts, unroll, chained, z_hat = \
+    words, n_words, states, ppos, pval, luts, chained, z_hat = \
         codec._interleaved_inputs(enc)
     return dict(z_hat=z_hat, words=words, n_words=n_words, states=states,
                 patch_pos=ppos, patch_val=pval, override=False, true_y=None,

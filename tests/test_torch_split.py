@@ -35,6 +35,10 @@ from dcae_tpu_torch.models.dcae import DCAE
 from dcae_tpu_torch.runtime import container
 from dcae_tpu_torch.tools.eval import CrossDeviceCodec
 from tests.test_torch_codec import KW, _bpp_psnr, _images
+from tests.torch_jax_coder import ensure_library
+
+# the JAX coder's library, whole before any test loads it
+ensure_library()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -185,7 +189,7 @@ def test_encdec_pipeline_matches_sequential_and_jax(weights, joint,
     """The serving loop's streams and x_hat equal per-batch calls; its
     bpp and PSNR are the JAX codec's within the codec bars."""
     _, params, jcfg, _ = weights
-    out = joint.encdec_pipeline(batches, decode_interleave=2)
+    out = joint.encdec_pipeline(batches)
     assert len(out) == len(batches)
     jax_codec = JaxCodec(jcfg, params=params)
     jax_codec.update()
