@@ -107,5 +107,7 @@ class EntropyBottleneck(nn.Module):
         """Quantile-tracking loss; gradients reach `quantiles` alone."""
         logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
         t = math.log(2.0 / self.tail_mass - 1.0)
-        target = logits.new_tensor([-t, 0.0, t]).reshape(1, 1, 3)
+        # made on the device: a host tensor would be a copy each step
+        target = torch.arange(-1, 2, dtype=logits.dtype,
+                              device=logits.device).reshape(1, 1, 3) * t
         return torch.abs(logits - target).sum()

@@ -30,6 +30,11 @@ def dp_noise(dp_rank: int, dp: int):
         _dp.shard = before
 
 
+def noise_shard():
+    """(dp index, dp) of the enclosing dp_noise, else None."""
+    return getattr(_dp, "shard", None)
+
+
 @contextlib.contextmanager
 def no_draws(why: str):
     """Inside: draw_noise raises. A noise draw on a row band would be a
@@ -51,7 +56,7 @@ def draw_noise(shape, generator: torch.Generator, dtype, device,
     banned = getattr(_dp, "banned", None)
     if banned is not None:
         raise RuntimeError(f"a training-noise draw inside {banned}")
-    shard = getattr(_dp, "shard", None)
+    shard = noise_shard()
     rows = shape[0]
     if shard is not None:
         shape = (rows * shard[1], *shape[1:])

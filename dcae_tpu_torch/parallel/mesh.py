@@ -36,6 +36,7 @@ from dcae_tpu_torch.entropy.ops import dp_noise
 from dcae_tpu_torch.models.codec import resolve_device
 from dcae_tpu_torch.parallel import multihost
 from dcae_tpu_torch.parallel.spatial import bands
+from dcae_tpu_torch.train.step_graph import after_backward
 from dcae_tpu_torch.utils.profiling import span
 
 BUCKET_BYTES = 25 << 20
@@ -151,10 +152,15 @@ def all_reduce_mean_(tensors: List[torch.Tensor], mesh: Mesh,
 
 @contextlib.contextmanager
 def _gradients_averaged(model: torch.nn.Module, mesh: Mesh):
-    """Inside: a backward through `model` ends with its gradients
-    all-reduced as a mean over the world. The first accumulated gradient
-    queues the reduction as the backward's final callback, so it runs
-    once, after every gradient and before backward() returns."""
+    """Inside: a train step through `model` all-reduces its gradients as
+    a mean over the world once they all exist, before its update. On a
+    card with sp == 1 the step runs the reduction itself, between its
+    backward and its update (train/step_graph.py: after_backward), so that
+    no collective runs inside a backward that it replays from a CUDA
+    graph. Otherwise (sp > 1, whose halo exchanges keep the step eager,
+    or the CPU) the first accumulated gradient queues the reduction as the
+    backward's final callback, so it runs once, after every gradient and
+    before backward() returns."""
     params = [p for p in model.parameters() if p.requires_grad]
     queued = [False]
 
@@ -163,6 +169,11 @@ def _gradients_averaged(model: torch.nn.Module, mesh: Mesh):
         with span("train.allreduce"):
             all_reduce_mean_([p.grad for p in params if p.grad is not None],
                              mesh)
+
+    if mesh.sp == 1 and mesh.device.type == "cuda":
+        with after_backward(reduce_all):
+            yield
+        return
 
     def hook(_) -> None:
         if not queued[0]:

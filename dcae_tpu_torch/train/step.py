@@ -11,6 +11,7 @@ from dcae_tpu_torch.models.dcae import DCAE
 from dcae_tpu_torch.train.losses import rate_distortion_loss
 from dcae_tpu_torch.train.state import (OptimizerSpec, TrainState,
                                         apply_updates)
+from dcae_tpu_torch.train.step_graph import StepGraphs, run_after_backward
 from dcae_tpu_torch.utils.profiling import span
 
 
@@ -55,19 +56,28 @@ def make_train_step(model: DCAE, tx: OptimizerSpec, lmbda: float,
     groups. The state (the model's parameters, the optimizers, the
     generator, the step count) is updated in place and returned; the
     metrics are detached tensors on the model's device, so a step never
-    makes the host wait for the device."""
+    makes the host wait for the device. On a card the forward and
+    backward are replayed from a CUDA graph from the second step of a
+    batch shape on (train/step_graph.py)."""
     loss_fn = make_loss_fn(model, lmbda, metric, precision_reg,
                            precision_noise)
 
-    def train_step(state: TrainState, batch: torch.Tensor):
+    def forward_backward(batch: torch.Tensor, generator: torch.Generator):
         for p in model.parameters():
             p.grad = None
         with span("train.forward"):
-            loss, metrics = loss_fn(batch, state.generator)
+            loss, metrics = loss_fn(batch, generator)
         with span("train.backward"):
             loss.backward()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    graphs = StepGraphs(model, forward_backward)
+
+    def train_step(state: TrainState, batch: torch.Tensor):
+        metrics = graphs.run(batch, state.generator)
+        run_after_backward()
         apply_updates(state, tx)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return train_step
 

@@ -1598,3 +1598,251 @@ def test_entropy_graph_replays_from_threads(cell_codec):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert errors == [] and sorted(done) == list(range(6))
+
+
+# --------------------------------------------------------- train graph --
+# The training step's forward and backward replayed from a CUDA graph
+# (train/step_graph.py) against the same steps run eagerly from the same
+# weights and noise seed, f32 with TF32 off. Gaps as the training cells'
+# judge takes them (benchmark/reference/train_check.py), held at the
+# cells' limits: losses 3e-5 of their value; each leaf's gradient or
+# change norm 5e-4 / 0.015 of its own or of the median leaf's.
+
+TRAIN_LIMITS = {"loss": 3e-5, "grad": 5e-4, "change": 0.015}
+
+
+def _leaf_gap(got: dict, want: dict, keep=lambda n: True) -> float:
+    names = [n for n in want if keep(n)]
+    med = float(np.median([want[n] for n in names]))
+    return max(abs(got[n] - want[n]) / max(want[n], med, 1e-30)
+               for n in names)
+
+
+def _train_gaps(got: dict, want: dict) -> dict:
+    """{"loss", "grad", "change"} gaps of one run against another, each a
+    dict of per-step losses and per-leaf gradient and change norms."""
+    med = float(np.median(list(want["grad"].values())))
+    return {"loss": max(abs(a - b) / abs(b)
+                        for a, b in zip(got["loss"], want["loss"])),
+            "grad": _leaf_gap(got["grad"], want["grad"]),
+            "change": _leaf_gap(got["change"], want["change"],
+                                lambda n: want["grad"][n] >= 1e-3 * med)}
+
+
+class _Counts:
+    """A sink of the program's counts."""
+
+    def __init__(self):
+        from dcae_tpu_torch.utils import profiling
+
+        class Sink(profiling.Sink):
+            def __init__(s):
+                s.counts = {}
+
+            def count(s, name, n):
+                s.counts[name] = s.counts.get(name, 0) + n
+
+        self.sink = Sink()
+        self._ctx = profiling.registered(self.sink)
+
+    def __enter__(self):
+        return self._ctx.__enter__().counts
+
+    def __exit__(self, *exc):
+        return self._ctx.__exit__(*exc)
+
+
+def _train_setup(cfg, device="cuda"):
+    """A seeded model, its train state (noise seed 1) and train step."""
+    from dcae_tpu_torch.models.base import build_model
+    from dcae_tpu_torch.train.state import create_train_state, make_optimizer
+    from dcae_tpu_torch.train.step import make_train_step
+
+    model = build_model(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(device)
+    tx = make_optimizer(1e-4, 1e-3, 1.0)
+    state = create_train_state(
+        model, tx, torch.Generator(device=device).manual_seed(1))
+    return model, tx, state, make_train_step(model, tx, 0.0483, "mse")
+
+
+def _train_batches(n: int, rows: int, side: int, seed: int = 3):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.uniform(0, 1, (rows, side, side, 3))
+                             .astype(np.float32)).cuda() for _ in range(n)]
+
+
+def _forced_eager(monkeypatch, on: bool):
+    from dcae_tpu_torch.train import step_graph as sg
+
+    if on:
+        monkeypatch.setattr(sg, "eager_reason", lambda *a: "forced")
+    else:
+        monkeypatch.undo()
+
+
+def _run_steps(model, state, step, batches) -> dict:
+    """Steps on `batches`: per-step losses (loss + aux), the last step's
+    gradient norms and the change of every leaf; the metrics as returned
+    and as they read right after their step."""
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    mets, read = [], []
+    for b in batches:
+        _, m = step(state, b)
+        mets.append(m)
+        read.append({k: v.clone() for k, v in m.items()})
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        return {"loss": [float(m["loss"] + m["aux_loss"]) for m in read],
+                "grad": {n: float(p.grad.norm())
+                         for n, p in model.named_parameters()},
+                "change": {n: float((p - p0[n]).norm())
+                           for n, p in model.named_parameters()},
+                "metrics": mets, "read": read}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dcae", "tcm"])
+def test_train_graph_steps_equal_the_eager_steps(card, no_tf32, monkeypatch,
+                                                 arch):
+    """Five steps on five batches of 8 x 256x256 at full width: the first
+    warms the key up eagerly, the second captures and replays, the rest
+    replay; against five eager steps from the same state, within the
+    training cells' limits. Counts: captured 1, replayed 4, eager 0; a
+    step's metrics are as they read right after it."""
+    from dcae_tpu_torch.config import DCAEConfig, TCMConfig
+
+    cfg = (TCMConfig if arch == "tcm" else DCAEConfig)()
+    batches = _train_batches(5, 8, 256)
+    runs, counts = [], []
+    for eager in (False, True):
+        _forced_eager(monkeypatch, eager)
+        model, _, state, step = _train_setup(cfg)
+        with _Counts() as c:
+            runs.append(_run_steps(model, state, step, batches))
+        counts.append(c)
+        del model, state, step
+        torch.cuda.empty_cache()
+    _forced_eager(monkeypatch, False)
+    graphed, eager = runs
+    assert counts == [{"train.graph.captured": 1, "train.graph.replayed": 4},
+                      {"train.graph.eager": 5}]
+    for m, r in zip(graphed["metrics"], graphed["read"]):
+        for k in m:
+            assert torch.equal(m[k], r[k]), k
+    assert len({r["loss"].item() for r in graphed["read"]}) == 5
+    gaps = _train_gaps(graphed, eager)
+    print(f"{arch} graphed against eager over 5 steps: {gaps}")
+    for k, lim in TRAIN_LIMITS.items():
+        assert gaps[k] <= lim, (k, gaps[k], lim)
+
+
+@pytest.mark.cuda
+def test_train_graph_recaptures_after_to_and_assign(card, no_tf32,
+                                                    monkeypatch):
+    """The tiny window-8 model, graphed and eager side by side through
+    three phases of three steps: as built, after `.to()` round trip (new
+    storages) and after `load_state_dict(assign=True)` (new parameters,
+    and new Adams over them). Each phase warms up, captures and replays
+    again, and every step's loss and gradients follow the eager twin's."""
+    from dcae_tpu_torch.train.state import create_train_state
+    from tests.torch_dp_common import card_config
+
+    batches = _train_batches(3, 2, 128)
+    twins = [_train_setup(card_config()) for _ in range(2)]
+    counts = []
+    for phase in ("built", "to", "assign"):
+        got = []
+        for eager, (model, tx, state, step) in zip((False, True), twins):
+            if phase == "to":
+                model.to("cpu").to("cuda")
+            elif phase == "assign":
+                model.load_state_dict({k: v.clone() for k, v in
+                                       model.state_dict().items()},
+                                      assign=True)
+                state = create_train_state(model, tx, state.generator,
+                                           step=state.step)
+            _forced_eager(monkeypatch, eager)
+            with _Counts() as c:
+                got.append(_run_steps(model, state, step, batches))
+            _forced_eager(monkeypatch, False)
+            if not eager:
+                counts.append(c)
+        gaps = _train_gaps(*got)
+        print(f"{phase}: graphed against eager {gaps}")
+        for k, lim in TRAIN_LIMITS.items():
+            assert gaps[k] <= lim, (phase, k, gaps[k], lim)
+    assert counts == [{"train.graph.captured": 1,
+                       "train.graph.replayed": 2}] * 3
+
+
+@pytest.mark.cuda
+def test_train_graph_replays_read_nothing_back(card, no_tf32):
+    """Under torch.cuda.set_sync_debug_mode("error") the replayed steps,
+    the eager update after each included, make the host wait for the
+    device nowhere."""
+    from tests.torch_dp_common import card_config
+
+    model, _, state, step = _train_setup(card_config())
+    batches = _train_batches(4, 2, 128)
+    for b in batches[:2]:
+        step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with _Counts() as c:
+            mets = [step(state, b)[1] for b in batches[2:]]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert c == {"train.graph.replayed": 2}
+    assert all(bool(torch.isfinite(m["loss"])) for m in mets)
+
+
+@pytest.mark.cuda
+def test_train_graph_dp_over_two_cards_equals_eager(card, tmp_path):
+    """Two ranks, a card each (NCCL, tests/torch_train_graph_worker.py):
+    three graphed dp steps (the mean all-reduce between the replay and
+    the update) against three eager ones (the all-reduce in the
+    backward's final callback) from the same state, on every rank.
+    Needs two cards."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from dcae_tpu_torch.ops.kernels import _build
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    _build.build_kernels()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests",
+                                      "torch_train_graph_worker.py"),
+         str(port), "2", str(r), str(tmp_path)], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("the ranks timed out:\n" + "\n".join(
+            p.communicate()[0] for p in procs))
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    for r in range(2):
+        with open(tmp_path / f"r{r}.json") as f:
+            res = json.load(f)
+        assert res["counts"] == [{"train.graph.captured": 1,
+                                  "train.graph.replayed": 2},
+                                 {"train.graph.eager": 3}]
+        gaps = _train_gaps(*res["runs"])
+        print(f"rank {r}: graphed dp against eager {gaps}")
+        for k, lim in TRAIN_LIMITS.items():
+            assert gaps[k] <= lim, (r, k, gaps[k], lim)
