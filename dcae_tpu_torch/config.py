@@ -1,8 +1,8 @@
 """Model configurations of the port: DCAEConfig, the DCAE codec (the
-PyTorch port's own copy of the JAX package's), and TCMConfig, the TCM
-codec (Liu et al., CVPR 2023), which only the port has. The model a codec
-builds is chosen by the configuration's type (models/base.py:
-build_model).
+PyTorch port's own copy of the JAX package's), TCMConfig, the TCM codec
+(Liu et al., CVPR 2023), and ELICConfig, the ELIC codec (He et al., CVPR
+2022), which only the port has. The model a codec builds is chosen by
+the configuration's type (models/base.py: build_model).
 
 DCAEConfig has the same fields and defaults as the JAX package's
 configuration, minus its TPU-only switches: the port launches its
@@ -215,5 +215,78 @@ class TCMConfig:
         base = dict(N=8, M=20, head_dim=(4, 4, 4, 4, 4, 4),
                     hyper_head_dim=4, atten_head_dim=4, atten_inter_dim=8,
                     cc_hidden=(16, 12), eb_channels=16)
+        base.update(overrides)
+        return cls(**base)
+
+
+@dataclasses.dataclass(frozen=True)
+class ELICConfig:
+    """Hyperparameters of the ELIC codec (He, Yang, Peng, Ma, Qin, Wang,
+    "ELIC: Efficient Learned Image Compression with Unevenly Grouped
+    Space-Channel Contextual Adaptive Coding", CVPR 2022; CompressAI's
+    Elic2022Official).
+
+    Defaults are the published model: N=192, M=320 in five uneven channel
+    groups (16, 16, 32, 64, 192), each coded in two checkerboard passes
+    (models/elic.py), the entropy bottleneck over N channels, the Gaussian
+    scale table as DCAE's. Fields the codec reads share DCAEConfig's names
+    and meanings."""
+
+    N: int = 192
+    M: int = 320
+    groups: Tuple[int, ...] = (16, 16, 32, 64, 192)
+    in_channels: int = 3
+    out_channels: int = 3
+
+    eb_channels: int = 192
+    eb_filters: Tuple[int, ...] = (3, 3, 3, 3)
+    eb_init_scale: float = 10.0
+    eb_tail_mass: float = 1e-9
+
+    scales_min: float = 0.11
+    scales_max: float = 256.0
+    scales_levels: int = 64
+    gc_tail_mass: float = 1e-9
+
+    drift_noise: float = 0.0
+
+    # compute dtype of g_a / h_a / g_s; the entropy side always runs f32
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if sum(self.groups) != self.M:
+            raise ValueError(f"groups {self.groups} do not sum to M={self.M}")
+
+    @property
+    def slice_dim(self) -> int:
+        """Symbols a latent position gives the largest coding step: half of
+        the widest group (a checkerboard step codes half of its group's
+        positions). The codec bounds a step's symbols, words and patches by
+        it, as by a slice's in the one-phase models."""
+        return max(self.groups) // 2
+
+    @property
+    def y_downsample(self) -> int:
+        """Total stride of g_a: four stride-2 convolutions."""
+        return 16
+
+    @property
+    def hyper_ratio(self) -> int:
+        return 4
+
+    @property
+    def z_downsample(self) -> int:
+        return self.y_downsample * self.hyper_ratio
+
+    @property
+    def pad_multiple(self) -> int:
+        # z at an integer size, so that h_s gives back y's extent
+        return self.z_downsample
+
+    @classmethod
+    def tiny(cls, **overrides) -> "ELICConfig":
+        """A small config for unit tests: the same topology, five uneven
+        groups."""
+        base = dict(N=8, M=20, groups=(2, 2, 4, 4, 8), eb_channels=8)
         base.update(overrides)
         return cls(**base)

@@ -1,15 +1,19 @@
-// NHWC stride-1 convolution, 1x1 or 3x3 with zero padding k / 2, with its
-// bias and the activation that follows it (none, exact-erf GELU or ReLU),
-// in f32:
+// NHWC stride-1 convolution, 1x1, 3x3 or 5x5 with zero padding k / 2, with
+// its bias and the activation that follows it (none, exact-erf GELU or
+// ReLU), in f32:
 //     out[b, h, w, n] = act(bias[n] + sum_{r, s, c} x[b, h + r - k/2,
 //                       w + s - k/2, c] * wt[n, c, r, s])
+// The sum runs over every tap (r, s), or, for a 5x5 with taps = 1, over the
+// 12 taps with r + s odd only: ELIC's checkerboard-masked spatial context,
+// whose other weights are zero by its mask, so they are never loaded.
 //
 // It replaces no TPU kernel: the JAX package leaves its convolutions to
 // XLA. It takes the entropy side's f32 convolutions at inference (the
 // slice context nets, the dictionary attention's 1x1s, the hyper
-// synthesis's stride-1 convolutions), which must stay f32 and bitwise
-// repeatable: encoder and decoder compute the same mu, sigma and LRP, and
-// the certified encoder replays the decoder's chain.
+// synthesis's stride-1 convolutions; ELIC's 5x5 channel and spatial
+// contexts), which must stay f32 and bitwise repeatable: encoder and
+// decoder compute the same mu, sigma and LRP, and the certified encoder
+// replays the decoder's chain.
 //
 // What bounds it on the H100: operations. The slice nets' first layer is a
 // GEMM of M = 12,288 pixels, N = 224 and K up to 11,520 at a batch of 8
@@ -23,24 +27,29 @@
 // at a ceiling of three TF32 products an f32 one: 3 x flops / 495 TFLOP/s.
 //
 // The design: an implicit GEMM on the NHWC tensors as they are (M = B H W
-// output pixels, N = C_out, K = k^2 C_in), one output tile a block, 8 warps
-// on mma.sync m16n8k8 with ldmatrix fragments, fed by a cp.async ring of
-// 2-4 stages. K runs tap by tap, (r, s, c): a K slice of 32 is a
+// output pixels, N = C_out, K = taps x C_in), one output tile a block, 8
+// warps on mma.sync m16n8k8 with ldmatrix fragments, fed by a cp.async ring
+// of 2-4 stages. K runs tap by tap, (r, s, c): a K slice of 32 is a
 // contiguous channel run of one tap, so a thread loads 16 bytes of one
 // input pixel (4 bytes where C_in % 4 != 0), and the image border and the
 // channels past C_in are zero fills (no padded copy of x). The weight is
-// packed once by the wrapper to (C_out, k^2, C_in rounded up to 32), zeros
+// packed once by the wrapper to (C_out, taps, C_in rounded up to 32), zeros
 // past C_in, so every weight slice is whole and aligned. The epilogue adds
 // the bias, applies the activation and writes each output once, in NHWC:
 // no layout transposes, no separate activation pass.
+//
+// One body, two kernels: conv2d_nhwc_tf32x3_kernel takes 1x1 and 3x3 (k at
+// run time), conv2d_nhwc_k5_tf32x3_kernel takes 5x5 (k a constant, the
+// tap set at run time), so that a device trace tells the 5x5 launches
+// apart by name.
 //
 // Tile shapes (BM x BN, warps WM x WN) are a template parameter and the
 // wrapper picks one per call from the shape it sees, by the waves of
 // tiles it fills on the card's SMs. Determinism: no split-K, no atomics.
 // Every output is one thread's sum over k-steps in the fixed order above,
-// which depends on C_in and k alone, not on B, H, W or the tile shape, so a
-// pixel's output is bitwise the same in a batch of 8 as alone, and from
-// launch to launch.
+// which depends on C_in, k and the tap set alone, not on B, H, W or the
+// tile shape, so a pixel's output is bitwise the same in a batch of 8 as
+// alone, and from launch to launch.
 #include <math.h>
 #include <stdint.h>
 
@@ -69,10 +78,11 @@ enum Act { kNone = 0, kGelu = 1, kRelu = 2 };
 
 struct Conv {
   const float* x;       // (B, H, W) pixels, ldx floats apart, C channels
-  const float* w;       // packed (N, k * k, Cp)
+  const float* w;       // packed (N, taps, Cp)
   const float* bias;    // (N) or null
   float* out;           // (B, H, W, N) contiguous
   int B, H, W, C, ldx, N, k, Cp, act;
+  int odd;              // 5x5 only: 1 runs the 12 taps with r + s odd
 };
 
 template <int BM, int BN, int WM>
@@ -115,9 +125,11 @@ __device__ __forceinline__ float activate(float v, int act) {
 
 // One BM x BN output tile a block; grid (ceil(M / BM), ceil(N / BN)).
 // kVec: C % 4 == 0 and ldx % 4 == 0 and x 16-byte aligned (16-byte loads).
-template <int BM, int BN, int WM, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-conv2d_nhwc_tf32x3_kernel(const Conv p) {
+// KS: 0, k from p (1 or 3, every tap); or 5, a 5x5 whose taps are every
+// one, or those with r + s odd (p.odd), whose linear index r * 5 + s is
+// then odd too: tap t of the packed weight sits at 2 t + 1.
+template <int BM, int BN, int WM, bool kVec, int KS>
+__device__ __forceinline__ void conv_tile(const Conv& p) {
   using T = Tile<BM, BN, WM>;
   constexpr int MT = T::MT, NT = T::NT, S = T::kStages;
   constexpr int kARows = BM * kPieces / kThreads;   // A rows a thread loads
@@ -143,13 +155,16 @@ conv2d_nhwc_tf32x3_kernel(const Conv p) {
     ah[i] = m < M ? (m / p.W) % p.H : -(1 << 20);
     aw[i] = m % p.W;
   }
-  const int pad = p.k / 2, cps = p.Cp / kBK, ktiles = p.k * p.k * cps;
-  const size_t ldw = (size_t)p.k * p.k * p.Cp;
+  const int k = KS ? KS : p.k;
+  const int taps = KS && p.odd ? KS * KS / 2 : k * k;
+  const int pad = k / 2, cps = p.Cp / kBK, ktiles = taps * cps;
+  const size_t ldw = (size_t)taps * p.Cp;
 
   auto load = [&](int kt, int stage) {
-    const int tap = kt / cps;
-    const int c = (kt - tap * cps) * kBK + 4 * piece;
-    const int dy = tap / p.k - pad, dx = tap % p.k - pad;
+    const int t = kt / cps;
+    const int tap = KS && p.odd ? 2 * t + 1 : t;
+    const int c = (kt - t * cps) * kBK + 4 * piece;
+    const int dy = tap / k - pad, dx = tap % k - pad;
     float* as = As + stage * BM * kBKS + piece * 4;
 #pragma unroll
     for (int i = 0; i < kARows; ++i) {
@@ -293,6 +308,18 @@ conv2d_nhwc_tf32x3_kernel(const Conv p) {
   }
 }
 
+template <int BM, int BN, int WM, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+conv2d_nhwc_tf32x3_kernel(const Conv p) {
+  conv_tile<BM, BN, WM, kVec, 0>(p);
+}
+
+template <int BM, int BN, int WM, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+conv2d_nhwc_k5_tf32x3_kernel(const Conv p) {
+  conv_tile<BM, BN, WM, kVec, 5>(p);
+}
+
 // The tile shapes, by index (the wrapper's TILES lists the same):
 //   0: 96 x 224 (2 x 4 warps of 48 x 56)   the slice nets' first layer
 //   1: 96 x 128 (2 x 4 warps of 48 x 32)
@@ -303,21 +330,22 @@ template <int BM, int BN, int WM, bool kVec>
 struct Kernel {
   static constexpr size_t kSmem = Tile<BM, BN, WM>::kSmem;
 
-  // raises the kernel's shared-memory limit to what it asks for
-  static cudaError_t prepare() {
-    return cudaFuncSetAttribute(conv2d_nhwc_tf32x3_kernel<BM, BN, WM, kVec>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)kSmem);
+  // the kernel of a call: the 5x5 one for k = 5
+  static void (*pick(int k))(const Conv) {
+    return k == 5 ? conv2d_nhwc_k5_tf32x3_kernel<BM, BN, WM, kVec>
+                  : conv2d_nhwc_tf32x3_kernel<BM, BN, WM, kVec>;
   }
 
   static int launch(const Conv& p, cudaStream_t stream) {
-    const cudaError_t err = prepare();
+    const auto fn = pick(p.k);
+    // raises the kernel's shared-memory limit to what it asks for
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (err != cudaSuccess) return (int)err;
     const long long M = (long long)p.B * p.H * p.W;
     const dim3 grid((unsigned)((M + BM - 1) / BM),
                     (unsigned)((p.N + BN - 1) / BN));
-    conv2d_nhwc_tf32x3_kernel<BM, BN, WM, kVec>
-        <<<grid, kThreads, kSmem, stream>>>(p);
+    fn<<<grid, kThreads, kSmem, stream>>>(p);
     return (int)cudaGetLastError();
   }
 };
@@ -344,18 +372,21 @@ R with_kernel(int tile, int vec, F f, R none) {
 extern "C" {
 
 // x: (B, H, W) pixels `ldx` floats apart, C channels each (a channels-last
-// view: ldx >= C); w: the weight packed as (N, k * k, Cp), Cp = C rounded
+// view: ldx >= C); w: the weight packed as (N, taps, Cp), Cp = C rounded
 // up to 32, zeros past C; bias: (N) or null; out: (B, H, W, N) contiguous.
-// k is 1 or 3 (padding k / 2), act 0 none, 1 GELU (exact erf), 2 ReLU.
-// vec: 16-byte loads of x (C and ldx multiples of 4, x 16-byte aligned);
-// w 16-byte aligned. Returns the CUDA error of the launch.
+// k is 1, 3 or 5 (padding k / 2); odd 1 (5x5 only): the taps are the 12
+// with r + s odd, in order, else all k * k. act 0 none, 1 GELU (exact
+// erf), 2 ReLU. vec: 16-byte loads of x (C and ldx multiples of 4, x
+// 16-byte aligned); w 16-byte aligned. Returns the CUDA error of the
+// launch.
 int dcae_conv2d_nhwc(const void* x, const void* w, const void* bias,
                      void* out, int B, int H, int W, int C, int ldx, int N,
-                     int k, int Cp, int act, int tile, int vec,
+                     int k, int odd, int Cp, int act, int tile, int vec,
                      void* stream) {
   const Conv p{(const float*)x, (const float*)w, (const float*)bias,
-               (float*)out, B, H, W, C, ldx, N, k, Cp, act};
-  if ((k != 1 && k != 3) || Cp % kBK || Cp < C || act < 0 || act > 2)
+               (float*)out, B, H, W, C, ldx, N, k, Cp, act, odd};
+  if ((k != 1 && k != 3 && k != 5) || (odd != 0 && (odd != 1 || k != 5)) ||
+      Cp % kBK || Cp < C || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   return with_kernel(tile, vec, [&](auto kern) {
     return kern.launch(p, (cudaStream_t)stream);

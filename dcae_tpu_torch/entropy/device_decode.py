@@ -42,6 +42,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dcae_tpu_torch.ops.kernels.rans_lanes import (  # noqa: F401
     RANS_L16, SLOTS, build_row_tables, rans_lanes_decode, rans_lanes_encode,
@@ -248,8 +249,10 @@ def encode_slices_with_patches(y_syms, idxs, enc_sf, offsets, maxpos,
     channel (the lane encoder of models/codec.py compress_device). Queues
     device work only: nothing here waits for the device.
 
-    y_syms: (S, ...) int true symbols; idxs: (S, ...) int coding-index
-    rows (flattened per slice). Each symbol is clamped into its row's
+    y_syms: (S, ...) int true symbols, or a sequence of S tensors where the
+    slices differ in size (models/base.py stack_steps); idxs alike, the
+    coding-index rows (flattened per slice). Words and patch lists are
+    padded to the largest slice. Each symbol is clamped into its row's
     in-range buckets for the stream; the true value of a clamped position
     rides the (pos, val) patch list, <= patch_cap entries a slice
     (patch_overflow is set beyond, and the caller falls back to the
@@ -261,14 +264,18 @@ def encode_slices_with_patches(y_syms, idxs, enc_sf, offsets, maxpos,
     final states; "states" is the single (K,) decode-start vector (after
     slice 0). chain=False keeps per-slice (S, K) states (DTI1 containers).
 
-    Returns tensors: words (S, n + 1) int16 bits in emission order,
-    n_words (S,) int32, states int32 bits, patch_pos (S, min(patch_cap,
-    n)) int32 (padding rows hold n), patch_val (same) int32, patch_count
-    (S,) int32, patch_overflow () bool, escape () bool."""
-    S = y_syms.shape[0]
-    sym2 = y_syms.reshape(S, -1).to(torch.int64)
-    idx2 = idxs.reshape(S, -1).to(torch.int64)
-    n = sym2.shape[1]
+    Returns tensors: words (S, n + 1) int16 bits in emission order (n the
+    largest slice's symbols), n_words (S,) int32, states int32 bits,
+    patch_pos (S, min(patch_cap, n)) int32 (padding rows hold n),
+    patch_val (same) int32, patch_count (S,) int32, patch_overflow () bool,
+    escape () bool."""
+    sizes = [t.numel() for t in y_syms]
+    S, n = len(sizes), max(sizes)
+
+    def padded(ts):
+        return torch.stack([F.pad(t.reshape(-1).to(torch.int64), (0, n - k))
+                            for t, k in zip(ts, sizes)])
+    sym2, idx2 = padded(y_syms), padded(idxs)
     dev = sym2.device
     offs = torch.as_tensor(offsets).to(dev).to(torch.int64)[idx2]
     mp = torch.as_tensor(maxpos).to(dev).to(torch.int64)[idx2]
@@ -276,6 +283,9 @@ def encode_slices_with_patches(y_syms, idxs, enc_sf, offsets, maxpos,
     pos_cl = torch.minimum(torch.clamp(pos_raw, min=0),
                            torch.clamp(mp - 1, min=0))
     esc_mask = pos_cl != pos_raw
+    for s, k in enumerate(sizes):
+        if k < n:
+            esc_mask[s, k:] = False          # a shorter slice's padding
     pcnt = esc_mask.sum(dim=1)
 
     # patch extraction in a fixed-size form (nonzero would wait for the
@@ -303,10 +313,13 @@ def encode_slices_with_patches(y_syms, idxs, enc_sf, offsets, maxpos,
     # chained: slice s starts from slice s+1's final states, so the S
     # encodes are strictly sequential (encode order S-1 .. 0)
     for s in reversed(range(S)):
+        k = sizes[s]
         w_l[s], nw_l[s], st, esc_l[s] = _encode_core(
-            pos_cl[s], idx2[s], row_ok[s], enc_sf, K=lanes,
+            pos_cl[s, :k], idx2[s, :k], row_ok[s, :k], enc_sf, K=lanes,
             init_states=st if chain else None)
         st_l[s] = st
+        if k < n:
+            w_l[s] = F.pad(w_l[s], (0, n - k))
     return {
         "words": torch.stack(w_l),
         "n_words": torch.stack(nw_l),

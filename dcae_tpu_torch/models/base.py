@@ -1,16 +1,28 @@
-"""The channel-autoregressive codec model that DCAE and TCM share.
+"""The channel-autoregressive codec model that DCAE, TCM and ELIC share.
 
     forward(x) -> {x_hat, likelihoods{y, z}, para{means, scales, y, ...}}
 
 ChannelARModel holds everything of a model but its transforms and its
-slice contexts: the entropy bottleneck over z, the slice loop of the
-training forward, the LRP application, and every real-codec piece the
-codec driver calls (models/codec.py). A model subclasses it with g_a,
-h_a, g_s, `hyper_synthesis` (z_hat -> (latent_scales, latent_means)),
-`_slice_context` (slice i's (support, mu, sigma) from those and the
-earlier slices) and `lrp_transforms` (slice i's LRP net, fed the support
-and the slice); `_slice_lrp` may be overridden. `build_model` picks the
-model a configuration names.
+contexts: the entropy bottleneck over z, the coding-step loop of the
+training forward and of every real-codec piece the codec driver calls
+(models/codec.py), and the LRP application. A model subclasses it with
+g_a, h_a, g_s, `hyper_synthesis` (z_hat -> (latent_scales,
+latent_means)) and its contexts. `build_model` picks the model a
+configuration names.
+
+A coding step is the unit the entropy coder codes at once, given every
+step before it. DCAE and TCM have `cfg.num_slices` steps, one a slice of
+`cfg.slice_dim` channels, each coded whole: a subclass gives
+`_slice_context` (slice i's (support, mu, sigma) from the hyper prior and
+the earlier slices) and `lrp_transforms` (slice i's LRP net, fed the
+support and the slice). A model whose steps are other parts of the
+latent (ELIC: two checkerboard passes a channel group, models/elic.py)
+overrides the step hooks: `num_steps`, `step_part` (a step's part of a
+latent map), `step_map` (the map from the steps' parts), `_merge` (the
+decoded y_hat after a step), `_step_context` and `_refine` (the step's
+decoded values after its LRP). A step's symbols and indexes have the
+shape of its part; where the steps share one shape they travel stacked,
+(S, B, yh, yw, sd), else as a tuple (`stack_steps`).
 
 forward(x, training=True, generator=g) is the training forward: additive
 uniform noise in place of rounding for the likelihoods, and, with
@@ -94,17 +106,28 @@ def reset_modules(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg, omit: Sequence[str] = ()) -> "ChannelARModel":
-    """The model of a configuration: TCM for a TCMConfig, DCAE for a
-    DCAEConfig."""
-    from dcae_tpu_torch.config import TCMConfig
+    """The model of a configuration: TCM for a TCMConfig, ELIC for an
+    ELICConfig, DCAE for a DCAEConfig."""
+    from dcae_tpu_torch.config import ELICConfig, TCMConfig
     from dcae_tpu_torch.models.dcae import DCAE
+    from dcae_tpu_torch.models.elic import ELIC
     from dcae_tpu_torch.models.tcm import TCM
 
-    return (TCM if isinstance(cfg, TCMConfig) else DCAE)(cfg, omit=omit)
+    model = (TCM if isinstance(cfg, TCMConfig) else
+             ELIC if isinstance(cfg, ELICConfig) else DCAE)
+    return model(cfg, omit=omit)
+
+
+def stack_steps(parts: Sequence[torch.Tensor]):
+    """The steps' tensors stacked, (S, ...), where they share one shape
+    (every one-phase model); else a tuple of them."""
+    if all(p.shape == parts[0].shape for p in parts):
+        return torch.stack(list(parts))
+    return tuple(parts)
 
 
 class ChannelARModel(nn.Module):
-    """The shared part of DCAE and TCM (module docstring)."""
+    """The shared part of DCAE, TCM and ELIC (module docstring)."""
 
     def __init__(self, cfg, omit: Sequence[str] = ()):
         """omit: transforms among g_a, h_a, g_s that this model does not
@@ -185,6 +208,44 @@ class ChannelARModel(nn.Module):
         `drift`: the generator of the drift injection (training only)."""
         raise NotImplementedError
 
+    # ------------------------------------------------------ coding steps --
+
+    @property
+    def num_steps(self) -> int:
+        return self.cfg.num_slices
+
+    def step_part(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Step i's part of a latent map t (B, yh, yw, M): its slice."""
+        sd = self.cfg.slice_dim
+        return t[..., i * sd:(i + 1) * sd]
+
+    def step_map(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The latent map whose step parts are `parts`: the slices side by
+        side."""
+        return torch.cat(list(parts), dim=-1)
+
+    def _merge(self, i: int, y_hat: torch.Tensor, piece: torch.Tensor
+               ) -> torch.Tensor:
+        """The decoded y_hat (B, yh, yw, channels of the steps so far)
+        after step i decoded `piece`: the slice joins the channels."""
+        return torch.cat([y_hat, piece], dim=-1)
+
+    def _step_context(self, i: int, latent_scales, latent_means,
+                      y_hat: torch.Tensor, carry, y_h: int, y_w: int,
+                      drift: Optional[torch.Generator] = None):
+        """(support, mu, sigma) of step i, in the shape of its part, from
+        the hyper prior, the decoded y_hat so far and `carry` (step i - 1's
+        support; None at step 0): slice i's _slice_context on the earlier
+        slices."""
+        prev = list(y_hat.split(self.cfg.slice_dim, dim=-1)) if i else []
+        return self._slice_context(i, latent_scales, latent_means, prev,
+                                   y_h, y_w, drift=drift)
+
+    def _refine(self, i: int, support, y_hat_step: torch.Tensor
+                ) -> torch.Tensor:
+        """Step i's decoded values after its LRP correction."""
+        return y_hat_step + self._slice_lrp(i, support, y_hat_step)
+
     def eb_medians(self) -> torch.Tensor:
         return self.entropy_bottleneck.medians()
 
@@ -236,25 +297,23 @@ class ChannelARModel(nn.Module):
         gen = self._training_generator(training, generator)
         _, y_h, y_w, _ = y.shape
         latent_scales, latent_means = self.hyper_synthesis(z_hat)
-        y_hat_slices: List[torch.Tensor] = []
+        y_hat, support = y[..., :0], None
         likes, mus, sigmas = [], [], []
-        for i, y_slice in enumerate(y.split(cfg.slice_dim, dim=-1)):
-            support, mu, sigma = self._slice_context(
-                i, latent_scales, latent_means, y_hat_slices, y_h, y_w,
+        for i in range(self.num_steps):
+            y_step = self.step_part(i, y)
+            support, mu, sigma = self._step_context(
+                i, latent_scales, latent_means, y_hat, support, y_h, y_w,
                 drift=gen)
             mus.append(mu)
             sigmas.append(sigma)
-            _, like = gaussian.apply(y_slice, sigma, mu, cfg.scales_min,
+            _, like = gaussian.apply(y_step, sigma, mu, cfg.scales_min,
                                      training=training, generator=gen)
             likes.append(like)
-            y_hat_slice = ste_round(y_slice - mu) + mu
-            y_hat_slice = y_hat_slice + self._slice_lrp(i, support,
-                                                        y_hat_slice)
-            y_hat_slices.append(y_hat_slice)
-        y_hat = torch.cat(y_hat_slices, dim=-1)
+            y_hat = self._merge(i, y_hat, self._refine(
+                i, support, ste_round(y_step - mu) + mu))
         x_hat = self._run(self.g_s, y_hat)
-        return (x_hat, torch.cat(likes, dim=-1), torch.cat(mus, dim=-1),
-                torch.cat(sigmas, dim=-1), y_hat)
+        return (x_hat, self.step_map(likes), self.step_map(mus),
+                self.step_map(sigmas), y_hat)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> dict:
@@ -271,18 +330,19 @@ class ChannelARModel(nn.Module):
     def decode_from_quantized(self, y_hat: torch.Tensor,
                               z_hat: torch.Tensor) -> torch.Tensor:
         """The decoder half on an ALREADY quantized latent: no rounding
-        again; each received slice gets its LRP correction and feeds the
-        next slice's context. The second and third decoder passes of the
+        again; each received step gets its LRP correction and feeds the
+        next step's context. The second and third decoder passes of the
         precision-regularization penalty (train/step.py)."""
         _, y_h, y_w, _ = y_hat.shape
         latent_scales, latent_means = self.hyper_synthesis(z_hat)
-        out_slices: List[torch.Tensor] = []
-        for i, y_slice in enumerate(y_hat.to(torch.float32).split(
-                self.cfg.slice_dim, dim=-1)):
-            support, _, _ = self._slice_context(
-                i, latent_scales, latent_means, out_slices, y_h, y_w)
-            out_slices.append(y_slice + self._slice_lrp(i, support, y_slice))
-        return self._run(self.g_s, torch.cat(out_slices, dim=-1))
+        y_q = y_hat.to(torch.float32)
+        out, support = y_q[..., :0], None
+        for i in range(self.num_steps):
+            support, _, _ = self._step_context(
+                i, latent_scales, latent_means, out, support, y_h, y_w)
+            out = self._merge(i, out, self._refine(
+                i, support, self.step_part(i, y_q)))
+        return self._run(self.g_s, out)
 
     # ------------------------------------------------ real-codec pieces --
 
@@ -299,28 +359,28 @@ class ChannelARModel(nn.Module):
     def encode_rest(self, y: torch.Tensor, z_hat: torch.Tensor,
                     scale_table) -> dict:
         """Everything after the analysis transforms in one call: hyper
-        synthesis, every slice context, the symbols round(y_i - mu_i) and
+        synthesis, every step's context, the symbols round(y_i - mu_i) and
         the coding indexes. Each context is built by the very functions
         the decoder runs (_ctx_and_indexes, _apply_symbols), so mu, sigma
         and the indexes are computed by the same kernels at the same
         shapes as in decode_start / decode_step.
 
-        Returns {"y_symbols": int32, "y_indexes": uint8}, each
-        (S, B, yh, yw, slice_dim)."""
+        Returns {"y_symbols": int32, "y_indexes": uint8}, each the steps'
+        stack_steps: (S, B, yh, yw, slice_dim) for a one-phase model."""
         y = y.to(torch.float32)
         latent_scales, latent_means = self.hyper_synthesis(z_hat)
-        y_hat = latent_scales[..., :0]
+        y_hat, support = latent_scales[..., :0], None
         syms, idxs = [], []
-        for i, y_slice in enumerate(y.split(self.cfg.slice_dim, dim=-1)):
+        for i in range(self.num_steps):
             support, mu, indexes = self._ctx_and_indexes(
-                i, latent_scales, latent_means, y_hat, scale_table)
-            symbols = torch.round(y_slice - mu).to(torch.int32)
+                i, latent_scales, latent_means, y_hat, scale_table, support)
+            symbols = torch.round(self.step_part(i, y) - mu).to(torch.int32)
             syms.append(symbols)
             idxs.append(indexes.to(torch.uint8))
-            y_hat = torch.cat(
-                [y_hat, self._apply_symbols(i, support, mu, symbols)], dim=-1)
-        return {"y_symbols": torch.stack(syms),
-                "y_indexes": torch.stack(idxs)}
+            y_hat = self._merge(
+                i, y_hat, self._apply_symbols(i, support, mu, symbols))
+        return {"y_symbols": stack_steps(syms),
+                "y_indexes": stack_steps(idxs)}
 
     def encode_arrays(self, x: torch.Tensor, scale_table) -> dict:
         """The whole device side of an encode in one call: encode_rest's
@@ -331,21 +391,19 @@ class ChannelARModel(nn.Module):
         return out
 
     def _ctx_and_indexes(self, i: int, latent_scales, latent_means,
-                         y_hat_prev: torch.Tensor, scale_table):
-        prev = list(y_hat_prev.split(self.cfg.slice_dim, dim=-1)) if i else []
+                         y_hat_prev: torch.Tensor, scale_table, carry=None):
         y_h, y_w = latent_scales.shape[1], latent_scales.shape[2]
-        support, mu, sigma = self._slice_context(
-            i, latent_scales, latent_means, prev, y_h, y_w)
+        support, mu, sigma = self._step_context(
+            i, latent_scales, latent_means, y_hat_prev, carry, y_h, y_w)
         indexes = gaussian.build_indexes(sigma, scale_table,
                                          self.cfg.scales_min)
         return support, mu, indexes
 
     def _apply_symbols(self, i: int, support, mu, symbols) -> torch.Tensor:
-        y_hat_slice = symbols.to(torch.float32) + mu
-        return y_hat_slice + self._slice_lrp(i, support, y_hat_slice)
+        return self._refine(i, support, symbols.to(torch.float32) + mu)
 
     def decode_start(self, z_hat: torch.Tensor, scale_table):
-        """Hyper synthesis + slice-0 context: (ls, lm, support0, mu0,
+        """Hyper synthesis + step-0 context: (ls, lm, support0, mu0,
         indexes0)."""
         latent_scales, latent_means = self.hyper_synthesis(z_hat)
         empty = latent_scales[..., :0]
@@ -355,23 +413,21 @@ class ChannelARModel(nn.Module):
 
     def decode_step(self, i: int, latent_scales, latent_means, y_hat_prev,
                     support_prev, mu_prev, symbols_prev, scale_table):
-        """Finish slice i-1 with its decoded symbols, then build slice i's
+        """Finish step i-1 with its decoded symbols, then build step i's
         context: (y_hat, support, mu, indexes)."""
-        y_hat_slice = self._apply_symbols(i - 1, support_prev, mu_prev,
-                                          symbols_prev)
-        y_hat = torch.cat([y_hat_prev, y_hat_slice], dim=-1)
+        y_hat = self._merge(i - 1, y_hat_prev, self._apply_symbols(
+            i - 1, support_prev, mu_prev, symbols_prev))
         support, mu, indexes = self._ctx_and_indexes(
-            i, latent_scales, latent_means, y_hat, scale_table)
+            i, latent_scales, latent_means, y_hat, scale_table, support_prev)
         return y_hat, support, mu, indexes
 
     def decode_end(self, y_hat_prev, support_last, mu_last, symbols_last
                    ) -> torch.Tensor:
-        """Apply the last slice and synthesize the image, clipped to
+        """Apply the last step and synthesize the image, clipped to
         [0, 1]."""
-        y_hat_slice = self._apply_symbols(self.cfg.num_slices - 1,
-                                          support_last, mu_last,
-                                          symbols_last)
-        y_hat = torch.cat([y_hat_prev, y_hat_slice], dim=-1)
+        last = self.num_steps - 1
+        y_hat = self._merge(last, y_hat_prev, self._apply_symbols(
+            last, support_last, mu_last, symbols_last))
         return self.decode_synthesis(y_hat)
 
     def decode_synthesis(self, y_hat: torch.Tensor) -> torch.Tensor:
@@ -382,42 +438,43 @@ class ChannelARModel(nn.Module):
                               states, patch_pos, patch_val, override: bool,
                               true_y, lut_sym, lut_sf, scale_table,
                               chained: bool = False):
-        """Slice contexts + entropy decode of the K-lane interleaved rANS
+        """Step contexts + entropy decode of the K-lane interleaved rANS
         streams ON THE DEVICE (entropy/device_decode.py): the channel-AR
         chain makes no round trip to the host and never waits for the
         device. Synthesis is NOT in this function (decode_synthesis comes
         right after): the certified ENCODE replays this very function and
         must not pay for g_s.
 
-        words: (S, W) uint16 bits, per-slice streams (padded); n_words:
+        words: (S, W) uint16 bits, per-step streams (padded); n_words:
         (S,) int32 true word counts; states: (S, K) uint32 bits decode-start
         lane states, or (K,) when chained; patch_pos / patch_val: (S, P)
         int32 escape patches (entropy/device_decode.py
         encode_slices_with_patches): true symbol values scattered over the
         clamped stream symbols right after entropy decode; rows whose
-        position is out of range are dropped.
+        position is out of range are dropped. A step's symbols run in the
+        order of its part's NHWC flatten.
 
         override / true_y (bool / (B, yh, yw, M) f32) exist for the
         ENCODER: the sigma -> index chain is only bit-stable when the same
         functions run at the same shapes with the same kernels, so the
         encoder teacher-forces THIS function with the raw latent y
-        (override=True: each slice's symbols are round(y_i - mu_i), and the
+        (override=True: each step's symbols are round(y_i - mu_i), and the
         y_hat chain reads them; no stream is decoded and no decode kernel
         is launched), then encodes the streams under the (indexes, symbols)
         returned here. The real decode (override=False) then reproduces
         those indexes as long as the decoded symbols equal the returned
-        ones, which holds slice by slice by induction. Decoders pass
+        ones, which holds step by step by induction. Decoders pass
         override=False and true_y=None.
 
-        chained=True: `states` is ONE (K,) vector spanning all slices;
-        slice i starts from slice i-1's final states, and the base-state
-        checksum applies once, after the last slice.
+        chained=True: `states` is ONE (K,) vector spanning all steps;
+        step i starts from step i-1's final states, and the base-state
+        checksum applies once, after the last step.
 
         Returns (y_hat, ok, idxs, syms): ok is a () bool tensor on the
-        device, the all-slices checksum (every stream consumed exactly and
-        every lane back at 2^16); idxs (S, B, yh, yw, sd) int8 and syms
-        (same, int32) are the per-slice chains the certified encoder
-        codes.
+        device, the all-steps checksum (every stream consumed exactly and
+        every lane back at 2^16); idxs (int8) and syms (int32) are the
+        per-step chains the certified encoder codes, stack_steps of the
+        steps' parts: (S, B, yh, yw, sd) for a one-phase model.
 
         On the card, with no gradient wanted, the pass is captured once a
         (direction, shape) key as a CUDA graph and replayed, its outputs
@@ -442,24 +499,22 @@ class ChannelARModel(nn.Module):
             RANS_L16, decode_interleaved, decode_interleaved_chain)
         from dcae_tpu_torch.ops.kernels.rans_lanes import bool_all, u32_bits
 
-        cfg = self.cfg
-        sd = cfg.slice_dim
         latent_scales, latent_means = self.hyper_synthesis(z_hat)
         dev = z_hat.device
-        y_hat = latent_scales[..., :0]
+        y_hat, support = latent_scales[..., :0], None
         ok = torch.ones((), dtype=torch.bool, device=dev)
         if not override:
             states = u32_bits(states, dev)
             K = states.shape[-1]
         chain_states = states if chained else None      # (K,), threaded
         idx_list, sym_list = [], []
-        for i in range(cfg.num_slices):
+        for i in range(self.num_steps):
             support, mu, indexes = self._ctx_and_indexes(
-                i, latent_scales, latent_means, y_hat, scale_table)
+                i, latent_scales, latent_means, y_hat, scale_table, support)
             idx_list.append(indexes.to(torch.int8))
             if override:
-                y_slice = true_y[..., i * sd:(i + 1) * sd].to(torch.float32)
-                sym = torch.round(y_slice - mu).to(torch.int32)
+                y_step = self.step_part(i, true_y).to(torch.float32)
+                sym = torch.round(y_step - mu).to(torch.int32)
             else:
                 n_i = indexes.numel()
                 if chained:
@@ -480,33 +535,35 @@ class ChannelARModel(nn.Module):
                     0, pos, patch_val[i].to(torch.int32))[:n_i]
                 sym = flat.reshape(indexes.shape)
             sym_list.append(sym)
-            y_hat = torch.cat(
-                [y_hat, self._apply_symbols(i, support, mu, sym)], dim=-1)
+            y_hat = self._merge(
+                i, y_hat, self._apply_symbols(i, support, mu, sym))
         if chained and not override:
             # the checksum sits at the end of the chain: every lane must be
-            # back at the 2^16 base after the LAST slice
+            # back at the 2^16 base after the LAST step
             ok = ok & bool_all(chain_states == RANS_L16)
-        return y_hat, ok, torch.stack(idx_list), torch.stack(sym_list)
+        return y_hat, ok, stack_steps(idx_list), stack_steps(sym_list)
 
     def decode_all(self, z_hat: torch.Tensor, symbols: torch.Tensor
                    ) -> torch.Tensor:
-        """The whole decode in one call when every slice's symbols are
+        """The whole decode in one call when every step's symbols are
         known (the encoder shipped its coding indexes, so the host decoded
-        all slices first): each slice's context and LRP, then synthesis.
-        symbols: (B, yh, yw, M) int. No index is recomputed, so nothing
-        here has to agree bitwise with the encoder."""
+        all steps first): each step's context and LRP, then synthesis.
+        symbols: (B, yh, yw, M) int, the map (step_map) of the steps'
+        symbols. No index is recomputed, so nothing here has to agree
+        bitwise with the encoder."""
         latent_scales, latent_means = self.hyper_synthesis(z_hat)
         y_h, y_w = latent_scales.shape[1], latent_scales.shape[2]
-        y_hat_slices: List[torch.Tensor] = []
-        for i, sym in enumerate(symbols.split(self.cfg.slice_dim, dim=-1)):
-            support, mu, _ = self._slice_context(
-                i, latent_scales, latent_means, y_hat_slices, y_h, y_w)
-            y_hat_slices.append(self._apply_symbols(i, support, mu, sym))
-        return self.decode_synthesis(torch.cat(y_hat_slices, dim=-1))
+        y_hat, support = latent_scales[..., :0], None
+        for i in range(self.num_steps):
+            support, mu, _ = self._step_context(
+                i, latent_scales, latent_means, y_hat, support, y_h, y_w)
+            y_hat = self._merge(i, y_hat, self._apply_symbols(
+                i, support, mu, self.step_part(i, symbols)))
+        return self.decode_synthesis(y_hat)
 
     def latent_decompress(self, y: torch.Tensor) -> torch.Tensor:
         """Latent hand-off decode: the payload is the raw latent y; z is
-        derived again here and each slice is quantized against its own
+        derived again here and each step is quantized against its own
         context."""
         y = y.to(torch.float32)
         z = self._run(self.h_a, y)
@@ -514,11 +571,10 @@ class ChannelARModel(nn.Module):
         z_hat = torch.round(z - medians) + medians
         latent_scales, latent_means = self.hyper_synthesis(z_hat)
         y_h, y_w = y.shape[1], y.shape[2]
-        y_hat_slices: List[torch.Tensor] = []
-        for i, y_slice in enumerate(y.split(self.cfg.slice_dim, dim=-1)):
-            support, mu, _ = self._slice_context(
-                i, latent_scales, latent_means, y_hat_slices, y_h, y_w)
-            y_hat_slice = torch.round(y_slice - mu) + mu
-            y_hat_slices.append(y_hat_slice + self._slice_lrp(
-                i, support, y_hat_slice))
-        return self.decode_synthesis(torch.cat(y_hat_slices, dim=-1))
+        y_hat, support = y[..., :0], None
+        for i in range(self.num_steps):
+            support, mu, _ = self._step_context(
+                i, latent_scales, latent_means, y_hat, support, y_h, y_w)
+            y_hat = self._merge(i, y_hat, self._refine(
+                i, support, torch.round(self.step_part(i, y) - mu) + mu))
+        return self.decode_synthesis(y_hat)

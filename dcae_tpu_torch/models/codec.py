@@ -3,19 +3,19 @@
   compress    three encoder modes, one stream format:
               staged  g_a + h_a once, then the encoder REPLAYS the
                       decoder's own functions (decode_start / decode_step)
-                      slice by slice and rounds each slice's symbols on the
+                      step by step and rounds each step's symbols on the
                       host against the decoder's mu: the mu/sigma/indexes
                       it codes under are the ones the decoder will compute.
-                      One device-to-host round trip per slice.
-              split   encode_analysis, then encode_rest (every slice
+                      One device-to-host round trip per step.
+              split   encode_analysis, then encode_rest (every step's
                       context, the symbols and the indexes on the device),
                       then one fetch and host rANS.
               fused   the same as one call (encode_arrays).
               self_check() certifies split or fused against staged.
   decompress  alternates the same device functions with host rANS decode,
-              once per slice (the channel-AR recursion is sequential); with
+              once per step (the channel-AR recursion is sequential); with
               the encoder's indexes shipped (compress_with_indexes) it
-              host-decodes every slice first and makes one decode_all call.
+              host-decodes every step first and makes one decode_all call.
   latent      compress_latent / decompress_latent hand off the raw latent
               y instead of a stream.
   many        compress_many / decompress_many code several batches, one
@@ -31,14 +31,20 @@
               host-decodes the (tiny) z stream and then never waits for
               the device; encdec_pipeline_interleaved is the profile's
               serving loop. Out-of-table symbols ride a patch list of at
-              most `patch_cap` entries a slice; beyond it (untrained
+              most `patch_cap` entries a step; beyond it (untrained
               weights) the encoders raise rans.EscapeError and the caller
               falls back to the classic format.
+
+A coding step is a slice of the latent's channels (DCAE, TCM) or one
+checkerboard pass of a channel group (ELIC): the model's step hooks
+(models/base.py) say which part of the latent it codes. A step's
+symbols are that part's, and the codec bounds a step's symbols by
+B * yh * yw * cfg.slice_dim (`_step_bound`).
 
 Both directions must compute bitwise-equal mu/sigma/indexes on the card,
 so the codec turns TF32 off and makes cuDNN deterministic; the two kernels
 are deterministic by construction. Symbols are serialized channel-major
-(NCHW flatten) per slice, the reference's order, and a batch encodes to
+(NCHW flatten) per step, the reference's order, and a batch encodes to
 one stream per image.
 
 A codec built from half a state dict (models/split.py: no g_s, or no g_a
@@ -58,7 +64,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from dcae_tpu_torch.config import DCAEConfig, TCMConfig
+from dcae_tpu_torch.config import DCAEConfig, ELICConfig, TCMConfig
 from dcae_tpu_torch.entropy import device_decode, rans
 from dcae_tpu_torch.entropy.gaussian import get_scale_table
 from dcae_tpu_torch.entropy.tables import CodecTables, build_codec_tables
@@ -106,6 +112,13 @@ def _auto_lanes(n_symbols: int) -> int:
     return 64
 
 
+def _host(steps):
+    """A step array (stacked, or a tuple of the steps') as numpy, alike."""
+    if torch.is_tensor(steps):
+        return steps.cpu().numpy()
+    return [t.cpu().numpy() for t in steps]
+
+
 def _nchw_flat(x_hwc: np.ndarray) -> np.ndarray:
     """(H, W, C) -> channel-major flat (the reference's symbol order)."""
     return np.ascontiguousarray(x_hwc.transpose(2, 0, 1)).reshape(-1)
@@ -118,12 +131,13 @@ def _unflatten_chw(flat: np.ndarray, h: int, w: int, c: int) -> np.ndarray:
 class DCAECodec:
     """Owns the model, its coding tables and the host coder's threads."""
 
-    def __init__(self, cfg: Union[DCAEConfig, TCMConfig], params=None,
+    def __init__(self, cfg: Union[DCAEConfig, TCMConfig, ELICConfig],
+                 params=None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0,
                  device=None, patch_cap: int = 512,
                  tables: Optional[CodecTables] = None):
-        """cfg: the model's configuration, which chooses the model (DCAE or
-        TCM, models/base.py: build_model).
+        """cfg: the model's configuration, which chooses the model (DCAE,
+        TCM or ELIC, models/base.py: build_model).
         params: a state dict in the port's (= the reference's) naming,
         values numpy arrays or tensors (utils.convert builds one from Flax
         params or a reference checkpoint); None draws a seeded random init.
@@ -134,7 +148,7 @@ class DCAECodec:
         half); update() then has nothing to do unless forced.
         dtype: compute dtype of g_a/h_a/g_s (default from
         cfg.compute_dtype); the entropy side always runs f32.
-        patch_cap: most out-of-table symbols a slice of the interleaved
+        patch_cap: most out-of-table symbols a step of the interleaved
         profile may carry in its patch list (also an attribute)."""
         self.device = resolve_device(device)
         set_deterministic()
@@ -212,6 +226,10 @@ class DCAECodec:
                 f"not hold: it is the {self.role} half of a split "
                 "deployment")
 
+    def _step_bound(self, B: int, y_h: int, y_w: int) -> int:
+        """The most symbols one coding step of B images holds."""
+        return B * y_h * y_w * self.cfg.slice_dim
+
     def _require_tables(self) -> CodecTables:
         if self.tables is None:
             raise RuntimeError("call update() before real coding")
@@ -276,8 +294,8 @@ class DCAECodec:
         mode: "staged", "split" or "fused" (module docstring); default
         self.encode_mode, or fused / staged when `fused` is given. Every
         mode writes the same stream format. record (optional list): gets
-        the (indexes, symbols) numpy pair of every slice, (B, yh, yw, sd)
-        each."""
+        the (indexes, symbols) numpy pair of every step, each in its
+        part's shape ((B, yh, yw, sd) for a slice)."""
         self._need("compress", "g_a", "h_a")
         if mode is None:
             mode = (self.encode_mode if fused is None
@@ -288,7 +306,8 @@ class DCAECodec:
 
     def _encode_arrays(self, x, mode: str) -> dict:
         """The device side of a split or fused encode: y_symbols and
-        y_indexes (S, B, yh, yw, sd), z_symbols (B, zh, zw, C)."""
+        y_indexes (the steps', stacked where they share a shape),
+        z_symbols (B, zh, zw, C)."""
         model, st = self.model, self._scale_table
         if mode == "fused":
             return model.encode_arrays(self._input(x), st)
@@ -305,14 +324,15 @@ class DCAECodec:
         only for this encode when _copy_to_host started the copies)."""
         if "_ready" in out:
             out["_ready"].synchronize()
-        return (out["z_symbols"].cpu().numpy(),
-                out["y_symbols"].cpu().numpy(),
-                out["y_indexes"].cpu().numpy().astype(np.int32))
+        idx = _host(out["y_indexes"])
+        return (out["z_symbols"].cpu().numpy(), _host(out["y_symbols"]),
+                idx.astype(np.int32) if isinstance(idx, np.ndarray)
+                else [i.astype(np.int32) for i in idx])
 
     def _finish_fused(self, out: dict, record: Optional[list] = None
                       ) -> dict:
         """Host rANS coding of an encode's arrays, fetched at once: one
-        stream per image, the slices in order, each channel-major (NCHW),
+        stream per image, the steps in order, each channel-major (NCHW),
         exactly as the staged encoder writes them."""
         g = self._require_tables().gaussian
         z_sym, y_sym, y_idx = self._fetch_encode_arrays(out)
@@ -357,28 +377,28 @@ class DCAECodec:
 
     def _compress_staged(self, x, record: Optional[list]) -> dict:
         """Encode by replaying the decoder's functions, rounding each
-        slice's symbols on the host against the decoder's own mu."""
+        step's symbols on the host against the decoder's own mu."""
         g = self._require_tables().gaussian
-        model, st, sd = self.model, self._scale_table, self.cfg.slice_dim
+        model, st = self.model, self._scale_table
         y, z_sym, z_hat = model.encode_analysis(self._input(x))
         z_np = z_sym.cpu().numpy()
         B, zh, zw, _ = z_np.shape
         z_strings = self._encode_z(z_np)
 
         ls, lm, support, mu, indexes = model.decode_start(z_hat, st)
-        y_np = y.cpu().numpy()
+        y_parts = [model.step_part(i, y).cpu().numpy()
+                   for i in range(model.num_steps)]
         y_hat = torch.zeros((B, *y.shape[1:3], 0), device=self.device)
         sym_chunks: List[List[np.ndarray]] = [[] for _ in range(B)]
         idx_chunks: List[List[np.ndarray]] = [[] for _ in range(B)]
         symbols = None
-        for i in range(self.cfg.num_slices):
+        for i in range(model.num_steps):
             if i > 0:
                 y_hat, support, mu, indexes = model.decode_step(
                     i, ls, lm, y_hat, support, mu, symbols, st)
             mu_np = mu.cpu().numpy()
             idx_np = indexes.cpu().numpy()
-            sym_np = np.round(y_np[..., i * sd:(i + 1) * sd] - mu_np
-                              ).astype(np.int32)
+            sym_np = np.round(y_parts[i] - mu_np).astype(np.int32)
             if record is not None:
                 record.append((idx_np, sym_np))
             for b in range(B):
@@ -421,17 +441,21 @@ class DCAECodec:
         if self.device.type != "cuda":
             return arrays
         out = {}
-        for k, t in arrays.items():
+        def pinned(t):
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            out[k] = host.copy_(t, non_blocking=True)
+            return host.copy_(t, non_blocking=True)
+
+        for k, t in arrays.items():
+            out[k] = (tuple(map(pinned, t)) if isinstance(t, tuple)
+                      else pinned(t))
         out["_ready"] = torch.cuda.Event()
         out["_ready"].record()
         return out
 
     class _DecodeJob:
-        """One batch's per-slice decode as a state machine, so that several
+        """One batch's per-step decode as a state machine, so that several
         batches can interleave (decompress_many): while one job's host
-        rANS decodes a slice, another job's device step runs. Each slice's
+        rANS decodes a step, another job's device step runs. Each step's
         indexes are copied to the host as soon as their step is queued."""
 
         def __init__(self, codec: "DCAECodec", strings, shape,
@@ -468,13 +492,13 @@ class DCAECodec:
             if "_ready" in self.idx:
                 self.idx["_ready"].synchronize()
             idx_np = self.idx["i"].cpu().numpy()
-            g, sd = self.g, self.c.cfg.slice_dim
+            g = self.g
 
             def decode_one(b: int) -> np.ndarray:
                 flat = self.decoders[b].decode_stream(
                     _nchw_flat(idx_np[b]), g.quantized_cdf, g.cdf_length,
                     g.offset, self.lut)
-                return _unflatten_chw(flat, self.y_h, self.y_w, sd)
+                return _unflatten_chw(flat, *idx_np.shape[1:])
 
             sym_np = np.stack(list(self.c._pool.map(decode_one,
                                                     range(self.B))))
@@ -483,14 +507,14 @@ class DCAECodec:
             return sym_np
 
         def advance(self) -> bool:
-            """Host-decode the current slice (waits for this job's indexes
+            """Host-decode the current step (waits for this job's indexes
             only), then queue the next device step. False when done."""
             if self.x_hat is not None:
                 return False
             c = self.c
             symbols = c._upload(self._host_decode())
             i = self.slice + 1
-            if i < c.cfg.num_slices:
+            if i < c.model.num_steps:
                 self.y_hat, self.support, self.mu, indexes = \
                     c.model.decode_step(i, self.ls, self.lm, self.y_hat,
                                         self.support, self.mu, symbols,
@@ -514,10 +538,10 @@ class DCAECodec:
                    record: Optional[list] = None) -> dict:
         """strings: [y_strings, z_strings]; shape: (zh, zw) of z. Returns
         {"x_hat": (B, H, W, 3) f32 tensor in [0, 1] on the device}.
-        indexes (optional): the encoder's coding indexes (S, B, yh, yw, sd)
-        from compress_with_indexes; the decoder then computes none itself.
-        record (optional list): gets each slice's (indexes, symbols), as in
-        compress."""
+        indexes (optional): the encoder's coding indexes from
+        compress_with_indexes, a step's array each; the decoder then
+        computes none itself. record (optional list): gets each step's
+        (indexes, symbols), as in compress."""
         self._need("decompress", "g_s")
         if indexes is not None:
             return self._decompress_shipped_indexes(strings, shape, indexes,
@@ -560,44 +584,43 @@ class DCAECodec:
 
     def _decompress_shipped_indexes(self, strings, shape, indexes,
                                     record: Optional[list]) -> dict:
-        """Host-decode every slice under the shipped indexes, then one
-        decode_all call: no device-to-host round trip between slices."""
+        """Host-decode every step under the shipped indexes, then one
+        decode_all call: no device-to-host round trip between steps."""
         g = self._require_tables().gaussian
         lut = g.lut
         y_strings, z_strings = strings
         zh, zw = int(shape[0]), int(shape[1])
-        y_h, y_w = zh * self.cfg.hyper_ratio, zw * self.cfg.hyper_ratio
-        sd, S = self.cfg.slice_dim, self.cfg.num_slices
-        idx = np.asarray(indexes).astype(np.int32)    # (S, B, yh, yw, sd)
+        # a step's (B, h, w, c) each
+        idx = [np.asarray(i).astype(np.int32) for i in indexes]
         z_hat = self._upload(self._decode_z_hat(z_strings, zh, zw))
-        per = y_h * y_w * sd
+        ends = np.cumsum([i[0].size for i in idx])[:-1]
 
-        def decode_one(b: int) -> np.ndarray:
+        def decode_one(b: int) -> List[np.ndarray]:
             flat = rans.decode_with_indexes(
                 y_strings[b], np.concatenate([_nchw_flat(i[b]) for i in idx]),
                 g.quantized_cdf, g.cdf_length, g.offset, lut=lut)
-            return np.stack([_unflatten_chw(flat[s * per:(s + 1) * per],
-                                            y_h, y_w, sd) for s in range(S)])
+            return [_unflatten_chw(part, *i.shape[1:])
+                    for part, i in zip(np.split(flat, ends), idx)]
 
-        # (S, B, yh, yw, sd)
-        sym = np.stack(list(self._pool.map(decode_one, range(len(z_strings)))),
-                       axis=1)
+        per_image = list(self._pool.map(decode_one, range(len(z_strings))))
+        sym = [np.stack([p[s] for p in per_image]) for s in range(len(idx))]
         if record is not None:
             record.extend(zip(idx, sym))
-        symbols = self._upload(np.concatenate(list(sym), axis=-1))
+        symbols = self.model.step_map([self._upload(s) for s in sym])
         return {"x_hat": self.model.decode_all(z_hat, symbols)}
 
     @torch.no_grad()
     def compress_with_indexes(self, x, record: Optional[list] = None
                               ) -> dict:
         """Fused compress that also returns the encoder's coding indexes,
-        (S, B, yh, yw, sd) uint8, to ship with the streams:
+        uint8, (S, B, yh, yw, sd) for a one-phase model (a list of the
+        steps' arrays where their shapes differ), to ship with the streams:
         decompress(..., indexes=...) then decodes in one device call.
         record: as in compress."""
         self._need("compress_with_indexes", "g_a", "h_a")
         out = self._encode_arrays(x, "fused")
         result = self._finish_fused(out, record)
-        result["indexes"] = out["y_indexes"].cpu().numpy()
+        result["indexes"] = _host(out["y_indexes"])
         return result
 
     # ------------------------------------------------ interleaved profile --
@@ -636,9 +659,9 @@ class DCAECodec:
         compress_interleaved's bit for bit.
 
         Out-of-table Gaussian-tail symbols (the ones the classic format
-        bypass-codes) ride a per-slice patch list: clamped in the stream,
+        bypass-codes) ride a per-step patch list: clamped in the stream,
         the exact value restored after the device's entropy decode. Raises
-        rans.EscapeError when a slice has more of them than self.patch_cap
+        rans.EscapeError when a step has more of them than self.patch_cap
         (untrained weights) or a symbol's row has no in-range bucket at
         all: fall back to the classic format.
 
@@ -651,7 +674,7 @@ class DCAECodec:
         algorithms (set_deterministic), so the real decode reproduces the
         chain by induction, and `ok` still catches a decoder that diverges.
 
-        chain: one lane-state set for all slices (DTI2) or one a slice
+        chain: one lane-state set for all steps (DTI2) or one a step
         (DTI1).
 
         Two phases, so that a serving loop can overlap batch i's fetch with
@@ -675,8 +698,8 @@ class DCAECodec:
             enc_sf, offs, maxpos, stride = self._enc_luts()
             B, H, W = x.shape[0], x.shape[1], x.shape[2]
             yd = self.cfg.y_downsample
-            n_slice = B * (H // yd) * (W // yd) * self.cfg.slice_dim
-            K = int(lanes or _auto_lanes(n_slice))
+            n_step = self._step_bound(B, H // yd, W // yd)
+            K = int(lanes or _auto_lanes(n_step))
             y, z_symbols, z_hat = model.encode_analysis(x)
             _, _, idxs, syms = model.decode_device_streams(
                 z_hat, None, None, None, None, None, True, y, None, None,
@@ -696,7 +719,7 @@ class DCAECodec:
                 "head": head, "words": res["words"], "states": res["states"],
                 "patch_pos": res["patch_pos"], "patch_val": res["patch_val"],
                 "z_symbols": z_symbols})
-            return {"host": host, "head": head, "cap": n_slice + 1, "K": K,
+            return {"host": host, "head": head, "cap": n_step + 1, "K": K,
                     "chain": bool(chain)}
 
     def _compress_device_fetch(self, pend: dict) -> dict:
@@ -709,7 +732,7 @@ class DCAECodec:
             if "_ready" in host:
                 host["_ready"].synchronize()
         with span("codec.encode.host"):
-            S = self.cfg.num_slices
+            S = self.model.num_steps
             head = host["head"].numpy()
             n_words, pcnt = head[:S], head[S:2 * S]
             if head[2 * S]:
@@ -717,7 +740,7 @@ class DCAECodec:
                     "symbol outside in-range CDF buckets (device encode)")
             if head[2 * S + 1]:
                 raise rans.EscapeError(
-                    f"escape patch list overflow (> {self.patch_cap}/slice)")
+                    f"escape patch list overflow (> {self.patch_cap}/step)")
             if sinks:
                 count("codec.patched_symbols", int(pcnt.sum()))
             words = to_u16(host["words"][:, :max(int(n_words.max()), 1)])
@@ -750,14 +773,14 @@ class DCAECodec:
     def compress_interleaved(self, x, lanes: Optional[int] = None,
                              chain: bool = True) -> dict:
         """Encode into the interleaved profile with the HOST coder (C++
-        encode_interleaved): per-slice interleaved y streams + a classic z
+        encode_interleaved): per-step interleaved y streams + a classic z
         stream, bit-identical to compress_device's, clamping and patches
         included. The dict carries no bucket / unroll / paired (0 in the
         container). Raises rans.EscapeError on patch-list overflow or a row
         without in-range buckets.
 
         Payload overhead against classic: ONE K-uint32 lane-state header
-        for the whole chain (chain=False: one a slice, the DTI1 layout)
+        for the whole chain (chain=False: one a step, the DTI1 layout)
         and 8 bytes per escape patch."""
         self._need("compress_interleaved", "g_a", "h_a")
         g = self._require_tables().gaussian
@@ -765,8 +788,10 @@ class DCAECodec:
         z_sym, y_sym, y_idx = self._fetch_encode_arrays(
             self._encode_arrays(x, mode))
         z_strings = self._encode_z(z_sym)
-        S = y_sym.shape[0]
-        K = int(lanes or _auto_lanes(y_sym[0].size))
+        S = len(y_sym)
+        r = self.cfg.hyper_ratio
+        K = int(lanes or _auto_lanes(self._step_bound(
+            z_sym.shape[0], z_sym.shape[1] * r, z_sym.shape[2] * r)))
         row_off = np.asarray(g.offset, np.int32)
         row_mp = np.asarray(g.cdf_length, np.int32) - 2   # in-range buckets
 
@@ -779,13 +804,13 @@ class DCAECodec:
             if pos.size > self.patch_cap:
                 raise rans.EscapeError(
                     f"escape patch list overflow (> {self.patch_cap}"
-                    "/slice)")
+                    "/step)")
             return csym, idx, (pos, sym[pos])
 
         clamped = list(self._pool.map(clamp_slice, range(S)))
         tables = (g.quantized_cdf, g.cdf_length, g.offset)
         if chain:
-            # sequential by construction: slice s starts from slice s+1's
+            # sequential by construction: step s starts from step s+1's
             # final states (the decoder threads them forward)
             streams: list = [None] * S
             states = None
@@ -812,7 +837,7 @@ class DCAECodec:
     def decompress_interleaved(self, enc: dict) -> dict:
         """Decode the interleaved profile: host-decode the (tiny) z stream,
         pad and upload the streams, then the device does the rest and the
-        host waits for it nowhere: slice contexts + lane decoder
+        host waits for it nowhere: step contexts + lane decoder
         (DCAE.decode_device_streams, the function the certified encode
         replayed), then synthesis. Returns {"x_hat", "ok"}; ok is a ()
         bool tensor on the device, the lanes checksum (False on a corrupt
@@ -848,10 +873,9 @@ class DCAECodec:
                     f"interleaved stream: states {states.shape} for "
                     f"{enc['lanes']} lanes, chained {chained}")
             # escape patches, padded to the longest list; padding rows hold a
-            # position past the slice's symbols, which the scatter drops
+            # position past every step's symbols, which the scatter drops
             r = self.cfg.hyper_ratio
-            n_flat = (len(enc["z_strings"]) * (zh * r) * (zw * r)
-                      * self.cfg.slice_dim)
+            n_flat = self._step_bound(len(enc["z_strings"]), zh * r, zw * r)
             patches = enc.get("patches") or []
             P = max([len(p[0]) for p in patches], default=0)
             ppos = np.full((S, P), n_flat, np.int32)
@@ -937,7 +961,7 @@ class DCAECodec:
         Criteria, per mode: (1) the stream equals the staged encoder's,
         byte for byte; (2) for fused, failing that: the staged decoder,
         run on the candidate stream, reproduces the encoder's indexes and
-        symbols at every slice (_roundtrip_check). split goes first, unless
+        symbols at every step (_roundtrip_check). split goes first, unless
         prefer_fused (the one-call encoder) asks for fused, which then gets
         criterion 2 before split is tried."""
         self._need("self_check", "g_a", "h_a")
@@ -970,8 +994,8 @@ class DCAECodec:
     @torch.no_grad()
     def _roundtrip_check(self, image, mode: str = "fused") -> bool:
         """Criterion 2: encode `image` in `mode`, decode the stream with the
-        per-slice decoder and require its (indexes, symbols) to equal the
-        encoder's at every slice, bitwise."""
+        per-step decoder and require its (indexes, symbols) to equal the
+        encoder's at every step, bitwise."""
         enc_rec: list = []
         enc = self._finish_fused(self._encode_arrays(image, mode), enc_rec)
         dec_rec: list = []
@@ -992,7 +1016,7 @@ class DCAECodec:
 
     @torch.no_grad()
     def decompress_latent(self, y) -> dict:
-        """Latent hand-off decode (DCAE.latent_decompress: it derives z
+        """Latent hand-off decode (model.latent_decompress: it derives z
         again, so it needs h_a beside g_s)."""
         self._need("decompress_latent", "h_a", "g_s")
         y = torch.as_tensor(np.asarray(y, np.float32), device=self.device)

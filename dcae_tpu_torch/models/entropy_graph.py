@@ -1,20 +1,20 @@
 """CUDA graphs of the entropy model's channel-autoregressive pass.
 
 ChannelARModel.decode_device_streams (models/base.py) runs the hyper
-synthesis, every slice context, the Gaussian indexes, the lane decoder,
-the patch scatter and the LRP: some 1,500 small launches at batch 8 of
-768x512, most of them shorter on the card than the host's time to queue
-them. The pass never reads the device from the host and its shapes follow
-from the call's, so on the card it is captured once a key as a
-torch.cuda.CUDAGraph and replayed on every later call:
+synthesis, every coding step's context, the Gaussian indexes, the lane
+decoder, the patch scatter and the LRP: some 1,500 small launches at
+batch 8 of 768x512, most of them shorter on the card than the host's time
+to queue them. The pass never reads the device from the host and its
+shapes follow from the call's, so on the card it is captured once a key
+as a torch.cuda.CUDAGraph and replayed on every later call:
 
   key      the direction (override), the stream layout (chained, K), the
            shapes, strides and dtypes of the tensor arguments, the stream
-           words padded to compress_device's bound on a slice's words (its
-           symbols + 1), the patch list padded to a power of two, the
-           identity of the constant tables and the matmul / cuDNN flags; a
-           stream's length, or a patch count within its bucket, does not
-           change it
+           words padded to compress_device's bound on a step's words (the
+           largest step's symbols + 1), the patch list padded to a power
+           of two, the identity of the constant tables and the matmul /
+           cuDNN flags; a stream's length, or a patch count within its
+           bucket, does not change it
   capture  on a key's first call: one eager pass on a side stream (lazy
            inits: cuBLAS workspaces, cuDNN plans, the kernels' modules and
            device-side constants), then the capture on that stream, into
@@ -69,6 +69,11 @@ def _tensor_args(a: dict) -> tuple:
     return (_ENCODE_INPUTS if a["override"] else _DECODE_INPUTS) + consts
 
 
+def _clone(t):
+    """A copy of a pass output: a tensor, or a tuple of the steps'."""
+    return tuple(map(_clone, t)) if isinstance(t, tuple) else t.clone()
+
+
 def _sig(t: torch.Tensor) -> tuple:
     return tuple(t.shape), t.stride(), t.dtype
 
@@ -80,8 +85,8 @@ def patch_bucket(n: int) -> int:
 
 
 def words_width(cfg, z_hat: torch.Tensor) -> int:
-    """compress_device's bound on a slice's stream words at z_hat's
-    shape: the slice's symbols + 1."""
+    """compress_device's bound on a step's stream words at z_hat's
+    shape: the largest step's symbols + 1."""
     B, zh, zw, _ = z_hat.shape
     r = cfg.hyper_ratio
     return B * zh * r * zw * r * cfg.slice_dim + 1
@@ -233,7 +238,7 @@ class _Graph:
         with span("codec.entropy.graph"):
             fill(self.bufs, a)
             self.graph.replay()
-            out = tuple(t.clone() for t in self.outs)
+            out = tuple(_clone(t) for t in self.outs)
         for n, k in self.launches.items():
             self.wrappers[n].launches += k
         self.record.replay()
