@@ -27,29 +27,50 @@
 // at a ceiling of three TF32 products an f32 one: 3 x flops / 495 TFLOP/s.
 //
 // The design: an implicit GEMM on the NHWC tensors as they are (M = B H W
-// output pixels, N = C_out, K = taps x C_in), one output tile a block, 8
-// warps on mma.sync m16n8k8 with ldmatrix fragments, fed by a cp.async ring
-// of 2-4 stages. K runs tap by tap, (r, s, c): a K slice of 32 is a
-// contiguous channel run of one tap, so a thread loads 16 bytes of one
-// input pixel (4 bytes where C_in % 4 != 0), and the image border and the
-// channels past C_in are zero fills (no padded copy of x). The weight is
-// packed once by the wrapper to (C_out, taps, C_in rounded up to 32), zeros
-// past C_in, so every weight slice is whole and aligned. The epilogue adds
-// the bias, applies the activation and writes each output once, in NHWC:
-// no layout transposes, no separate activation pass.
+// output pixels, N = C_out, K = taps x C_in), one BM x BN output tile a
+// block, warp-specialised on Hopper's warpgroup products (wgmma, the only
+// way to the tensor cores' full rate):
+//  * the weight is packed and split once, by the wrapper, into hi and lo
+//    (C_out, taps, C_in rounded up to 32), zeros past C_in; a K slice of 32
+//    floats is one 128-byte row, so a stage's B hi and lo tiles are two TMA
+//    loads with the 128-byte swizzle that wgmma reads, rows past C_out
+//    filled with zeros by the TMA;
+//  * one producer warpgroup fills a ring of stages under full / empty
+//    mbarriers. The A slice is one tap's 32 channels of BM pixels. For a
+//    stride-1 tap those are BM consecutive pixels of x, shifted by the
+//    tap, so one thread brings them as one TMA box (zeros past C_in and
+//    outside the tensor) beside the weight's boxes, and three warps zero
+//    the rows whose tap leaves the image once the box has landed: no
+//    padded copy of x, and the gather costs the producer a few
+//    instructions a row (on an H100, 16-byte cp.async a piece held the
+//    slice nets' first layer at ~0.66 ms, the TMA at ~0.49). Where C_in % 4
+//    != 0 or the view is unaligned the TMA cannot read x, and the whole
+//    warpgroup gathers the slice with 4-byte cp.async, zero-filling the
+//    border and the channels past C_in;
+//  * each of WGS consumer warpgroups owns 64 rows x BN: it loads its A
+//    fragments with ldmatrix, splits them into hi and lo in registers, and
+//    runs wgmma m64nBNk8 (tf32, A from registers, B hi or lo from shared
+//    memory) lo*hi, hi*lo, hi*hi into its partial, which it adds to its
+//    f32 accumulator; while one warpgroup waits for its partial the others'
+//    products keep the tensor cores busy. At three consumer warpgroups the
+//    producer gives up registers to them (setmaxnreg): 56 accumulator and
+//    56 partial registers a thread at BN = 112.
+// The epilogue adds the bias, applies the activation and writes each output
+// once, in NHWC: no layout transposes, no separate activation pass.
 //
 // One body, two kernels: conv2d_nhwc_tf32x3_kernel takes 1x1 and 3x3 (k at
 // run time), conv2d_nhwc_k5_tf32x3_kernel takes 5x5 (k a constant, the
 // tap set at run time), so that a device trace tells the 5x5 launches
 // apart by name.
 //
-// Tile shapes (BM x BN, warps WM x WN) are a template parameter and the
-// wrapper picks one per call from the shape it sees, by the waves of
-// tiles it fills on the card's SMs. Determinism: no split-K, no atomics.
-// Every output is one thread's sum over k-steps in the fixed order above,
+// Tile shapes (WGS consumer warpgroups, BN) are template parameters and the
+// wrapper picks one per call from the shape it sees, by the waves of tiles
+// it fills on the card's SMs. Determinism: no split-K, no atomics. Every
+// output is one warpgroup's sum over k-steps in the fixed order above,
 // which depends on C_in, k and the tap set alone, not on B, H, W or the
 // tile shape, so a pixel's output is bitwise the same in a batch of 8 as
 // alone, and from launch to launch.
+#include <cuda.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -57,64 +78,132 @@
 
 namespace {
 
-using dcae::mma_tf32_1688;
 using dcae::split_tf32;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 32;            // K columns a stage: one tap's channels
-constexpr int kBKS = kBK + 4;      // staged row stride: conflict-free frags
-constexpr int kPieces = kBK / 4;   // 16-byte pieces a staged row
-constexpr int kRingBytes = 200 * 1024;   // the ring's budget of shared memory
+constexpr int kBK = 32;              // K columns a stage: one tap's channels
+constexpr int kPieces = kBK / 4;     // 16-byte pieces a staged row
+constexpr int kWG = 128;             // threads a warpgroup
 // k-steps of 8 whose products sum in one partial before it is added to the
 // accumulator: the tensor cores' truncating sum then covers 48 products
 // that start from zero, never the running total (measured on an H100
-// against f64: 1.3e-6 of max at K = 10,944, against 1.8e-6 with a partial
-// a k-step and 8.5e-5 with none), and each accumulator takes half the f32
-// adds; more steps would hold more fragments than the registers take
+// against f64: 1.3e-6 of max at K = 10,944 on mma.sync, 1.2e-6 to 2.2e-6
+// at K = 8,640 to 11,520 on wgmma, against 1.8e-6 with a partial a k-step
+// and 8.5e-5 with none), and each accumulator takes half the f32 adds
 constexpr int kSteps = 2;
+// registers a thread of the producer and of a consumer warpgroup keep at
+// three consumers: 32 + 3 x 160 = 512 of the block's 4 x 128
+constexpr int kProducerRegs = 32;
+constexpr int kConsumerRegs = 160;
 
 enum Act { kNone = 0, kGelu = 1, kRelu = 2 };
 
 struct Conv {
   const float* x;       // (B, H, W) pixels, ldx floats apart, C channels
-  const float* w;       // packed (N, taps, Cp)
   const float* bias;    // (N) or null
   float* out;           // (B, H, W, N) contiguous
   int B, H, W, C, ldx, N, k, Cp, act;
   int odd;              // 5x5 only: 1 runs the 12 taps with r + s odd
 };
 
-template <int BM, int BN, int WM>
+template <int kWGS, int kBN>
 struct Tile {
-  static constexpr int WN = kWarps / WM;
-  static constexpr int MT = BM / WM / 16;    // m16 tiles a warp
-  static constexpr int NT = BN / WN / 8;     // n8 tiles a warp
-  static constexpr int kStageFloats = (BM + BN) * kBKS;
-  static constexpr int kFit = kRingBytes / (int)sizeof(float) / kStageFloats;
-  static constexpr int kStages = kFit < 4 ? kFit : 4;
-  static constexpr size_t kSmem =
-      sizeof(float) * (size_t)kStages * kStageFloats;
-  static_assert(MT * WM * 16 == BM && NT * WN * 8 == BN, "warp tiling");
-  static_assert(BM * kPieces % kThreads == 0 &&
-                BN * kPieces % kThreads == 0, "whole loads a thread");
+  static constexpr int WGS = kWGS, BN = kBN, BM = 64 * WGS;
+  static constexpr int kThreads = kWG * (WGS + 1);
+  // one consumer warpgroup (at most 64 columns) fits two blocks on an SM
+  static constexpr int kMinBlocks = WGS == 1 ? 2 : 1;
+  static constexpr int kABytes = BM * kBK * 4;
+  static constexpr int kBBytes = BN * kBK * 4;          // hi or lo
+  static constexpr int kStageBytes = kABytes + 2 * kBBytes;
+  static constexpr int kBudget = (kMinBlocks == 2 ? 110 : 224) * 1024;
+  static constexpr int kFit = kBudget / kStageBytes;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  // the ring (1024-byte aligned: the swizzle's atom), then a full, an empty
+  // and an A-landed barrier a stage, then (h, w) of each of the tile's rows
+  static constexpr size_t kSmem = (size_t)kStages * kStageBytes + 1024 +
+                                  24 * kStages + 8 * BM;
+  static constexpr bool kRebalance = WGS == 3;
+  static_assert(BN % 8 == 0 && BN <= 256, "wgmma's N");
+  static_assert(WGS == 3 || BN <= 64, "one consumer: two blocks an SM");
+  static_assert(kABytes % 1024 == 0 && kBBytes % 1024 == 0,
+                "stages keep the swizzle atom's alignment");
   static_assert(kStages >= 2, "a ring of at least two stages");
+  static_assert(kWG % kPieces == 0 && BM % (kWG / kPieces) == 0,
+                "whole rows a producer thread");
 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
                                                 bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(smem)),
                "l"(gmem), "r"(valid ? 4 : 0));
 }
 
-// Two 8 x 16-byte matrices from shared memory: lanes 0-7 give the row
-// addresses of the first, lanes 8-15 those of the second.
-__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
+// Arrive on `bar` once every cp.async this thread started has landed; the
+// arrival is one of those the barrier was initialised to expect.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Wait for the phase of `bar` with this parity. A wait that outlasts ~10 s
+// of the SM's clock traps: a stuck pipeline fails the launch with an error
+// and never holds the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  long long start = 0;
+  for (int spin = 0;; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin == 0) start = clock64();
+    else if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// A 2D box of the tensor map `map` at (c0 innermost, c1) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(void* smem, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(smem)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Descriptor of a K-major wgmma operand of 128-byte rows in the 128-byte
+// swizzle, as the TMA writes it: 8-row atoms of 1024 bytes (SBO), the
+// start 1024-byte aligned; a k-step of 8 tf32 (32 bytes) further along K is
+// the descriptor plus 2.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The registers of `d` are written by the products in flight until their
+// wait: reads of them stay after it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ float activate(float v, int act) {
@@ -123,229 +212,407 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
+// D(64 x N, f32) = A(64 x 8, tf32, registers) B(N x 8, tf32, shared)^T
+// (+ D where scale_d != 0) by one warpgroup. A's registers in each warp
+// (rows 16 w..) as mma.sync m16n8k8 lays them out: (g, q), (g + 8, q),
+// (g, q + 4), (g + 8, q + 4) for lane 4 g + q; d[4 j + e] as the m16n8
+// tile j (columns 8 j..) of the mma.sync D layout.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t a[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+      : "memory");
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t a[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+      : "memory");
+  }
+};
+
+template <>
+struct Wgmma<112> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t a[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+      : "memory");
+  }
+};
+
+// Offset in floats of element (r, c) of a stage's A rows (32 floats each)
+// in the 128-byte swizzle, as the TMA writes them: the 16-byte piece c / 4
+// of row r sits at piece (c / 4) ^ (r % 8).
+__device__ __forceinline__ int swizzled(int r, int c) {
+  return r * kBK + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+
 // One BM x BN output tile a block; grid (ceil(M / BM), ceil(N / BN)).
-// kVec: C % 4 == 0 and ldx % 4 == 0 and x 16-byte aligned (16-byte loads).
-// KS: 0, k from p (1 or 3, every tap); or 5, a 5x5 whose taps are every
-// one, or those with r + s odd (p.odd), whose linear index r * 5 + s is
-// then odd too: tap t of the packed weight sits at 2 t + 1.
-template <int BM, int BN, int WM, bool kVec, int KS>
-__device__ __forceinline__ void conv_tile(const Conv& p) {
-  using T = Tile<BM, BN, WM>;
-  constexpr int MT = T::MT, NT = T::NT, S = T::kStages;
-  constexpr int kARows = BM * kPieces / kThreads;   // A rows a thread loads
-  constexpr int kBRows = BN * kPieces / kThreads;
-  constexpr int kRowStep = kThreads / kPieces;
-  extern __shared__ float smem[];
-  float* As = smem;                     // [S][BM][kBKS]
-  float* Bs = smem + S * BM * kBKS;     // [S][BN][kBKS]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wm = (warp % WM) * (BM / WM), wn = (warp / WM) * (BN / T::WN);
+// kVec: C % 4 == 0 and ldx % 4 == 0 and x 16-byte aligned; xa then maps x
+// as M pixels (ldx floats apart) of C channels, boxes of 32 channels x BM
+// pixels in the 128-byte swizzle. KS: 0, k from p (1 or 3, every tap); or
+// 5, a 5x5 whose taps are every one, or those with r + s odd (p.odd), whose
+// linear index r * 5 + s is then odd too: tap t of the packed weight sits
+// at 2 t + 1. whi / wlo: the packed weight's hi and lo halves as (N, taps x
+// Cp) tensor maps, boxes of 32 x BN in the same swizzle.
+template <typename T, bool kVec, int KS>
+__device__ __forceinline__ void conv_tile(const Conv& p,
+                                          const CUtensorMap* xa,
+                                          const CUtensorMap* whi,
+                                          const CUtensorMap* wlo) {
+  constexpr int S = T::kStages, BM = T::BM, BN = T::BN, WGS = T::WGS;
+  // producer threads that put a stage's A rows in place: warps 1-3 zeroing
+  // after the TMA (kVec), else the whole warpgroup gathering
+  constexpr int kFillers = kVec ? kWG - 32 : kWG;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * T::kStageBytes);
+  uint64_t* empty = full + S;
+  uint64_t* landed = empty + S;          // a stage's A box (kVec)
+  int2* rows = reinterpret_cast<int2*>(landed + S);
+  const int tid = threadIdx.x, wg = tid / kWG;
   const int M = p.B * p.H * p.W;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int piece = tid % kPieces, row0 = tid / kPieces;
-
-  // the output pixels whose input rows this thread loads; a row past M
-  // gets a height that no tap brings inside the image
-  int am[kARows], ah[kARows], aw[kARows];
-#pragma unroll
-  for (int i = 0; i < kARows; ++i) {
-    const int m = m0 + row0 + i * kRowStep;
-    am[i] = m;
-    ah[i] = m < M ? (m / p.W) % p.H : -(1 << 20);
-    aw[i] = m % p.W;
-  }
   const int k = KS ? KS : p.k;
   const int taps = KS && p.odd ? KS * KS / 2 : k * k;
   const int pad = k / 2, cps = p.Cp / kBK, ktiles = taps * cps;
-  const size_t ldw = (size_t)taps * p.Cp;
 
-  auto load = [&](int kt, int stage) {
-    const int t = kt / cps;
-    const int tap = KS && p.odd ? 2 * t + 1 : t;
-    const int c = (kt - t * cps) * kBK + 4 * piece;
-    const int dy = tap / k - pad, dx = tap % k - pad;
-    float* as = As + stage * BM * kBKS + piece * 4;
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) {
-      const int h = ah[i] + dy, w = aw[i] + dx;
-      const bool in = h >= 0 && h < p.H && w >= 0 && w < p.W;
-      const long long off =
-          ((long long)am[i] + dy * p.W + dx) * p.ldx + c;
-      float* dst = as + (row0 + i * kRowStep) * kBKS;
+  // (h, w) of each row's output pixel; a row past M gets a height that no
+  // tap brings inside the image
+  for (int r = tid; r < BM; r += T::kThreads) {
+    const int m = m0 + r;
+    rows[r] = make_int2(m < M ? (m / p.W) % p.H : -(1 << 20), m % p.W);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      // the fillers' arrivals and the arrival for the weight's TMA bytes
+      dcae::mbar_init(&full[s], kFillers + 1);
+      dcae::mbar_init(&empty[s], 4 * WGS);    // a consumer warp each
+      dcae::mbar_init(&landed[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == WGS) {
+    // ---- producer: slice kt into stage kt % S once its last use is done
+    if constexpr (T::kRebalance)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kProducerRegs));
+    const int pt = tid - WGS * kWG;
+    // the slice's tap offset and first channel
+    auto slice = [&](int kt, int& dy, int& dx, int& c0) {
+      const int t = kt / cps;
+      const int tap = KS && p.odd ? 2 * t + 1 : t;
+      c0 = (kt - t * cps) * kBK;
+      dy = tap / k - pad;
+      dx = tap % k - pad;
+    };
+    // the weight's hi and lo boxes; with kVec the A box too: the BM pixels
+    // from m0 + dy W + dx on, which are the rows' taps wherever the tap
+    // stays inside the image
+    auto request = [&](int kt) {
+      const int s = kt % S;
+      if (kt >= S) mbar_wait(&empty[s], (kt / S - 1) & 1);
+      uint8_t* st = ring + s * T::kStageBytes;
+      dcae::mbar_expect(&full[s], 2 * T::kBBytes);
+      tma_load(st + T::kABytes, whi, kt * kBK, n0, &full[s]);
+      tma_load(st + T::kABytes + T::kBBytes, wlo, kt * kBK, n0, &full[s]);
       if (kVec) {
-        const bool ok = in && c < p.C;
-        dcae::cp_async16_zfill(dst, ok ? p.x + off : p.x, ok);
-      } else {
+        int dy, dx, c0;
+        slice(kt, dy, dx, c0);
+        dcae::mbar_expect(&landed[s], T::kABytes);
+        tma_load(st, xa, c0, m0 + dy * p.W + dx, &landed[s]);
+      }
+    };
+    if (kVec) {
+      // thread 0 requests the boxes, S slices ahead of the consumers; warps
+      // 1-3 zero each slice's rows whose tap leaves the image as soon as it
+      // lands, so the consumers never wait on a request
+      if (pt == 0) {
+        for (int kt = 0; kt < ktiles; ++kt) request(kt);
+      } else if (pt >= 32) {
+        const int f = pt - 32;
+        for (int j = 0; j < ktiles; ++j) {
+          const int s = j % S;
+          int dy, dx, c0;
+          slice(j, dy, dx, c0);
+          mbar_wait(&landed[s], (j / S) & 1);
+          float* as = reinterpret_cast<float*>(ring + s * T::kStageBytes);
+          for (int r = f; r < BM; r += kFillers) {
+            const int2 hw = rows[r];
+            const int h = hw.x + dy, w = hw.y + dx;
+            if (h < 0 || h >= p.H || w < 0 || w >= p.W) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = in && c + e < p.C;
-          cp_async4_zfill(dst + e, ok ? p.x + off + e : p.x, ok);
+              for (int c = 0; c < kBK; c += 4)
+                *reinterpret_cast<float4*>(as + r * kBK + c) =
+                    make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+          }
+          dcae::fence_proxy_async();   // the zeros, before later TMA writes
+          mbar_arrive(&full[s]);
         }
       }
+    } else {
+      // 4-byte copies, four to a thread's 16-byte piece of a row; rows
+      // row0, row0 + 16, ...
+      const int piece = pt % kPieces, row0 = pt / kPieces;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        if (pt == 0) request(kt);
+        else if (kt >= S) mbar_wait(&empty[kt % S], (kt / S - 1) & 1);
+        int dy, dx, c0;
+        slice(kt, dy, dx, c0);
+        const int c = c0 + 4 * piece;
+        float* as = reinterpret_cast<float*>(ring + (kt % S) * T::kStageBytes);
+#pragma unroll 1
+        for (int r = row0; r < BM; r += kWG / kPieces) {
+          const int2 hw = rows[r];
+          const int h = hw.x + dy, w = hw.y + dx;
+          const bool in = h >= 0 && h < p.H && w >= 0 && w < p.W;
+          const long long off =
+              ((long long)(m0 + r) + dy * p.W + dx) * p.ldx + c;
+          float* dst = as + swizzled(r, 4 * piece);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = in && c + e < p.C;
+            cp_async4_zfill(dst + e, ok ? p.x + off + e : p.x, ok);
+          }
+        }
+        cp_async_arrive(&full[kt % S]);
+      }
+      dcae::cp_async_wait<0>();
     }
-    float* bs = Bs + stage * BN * kBKS + piece * 4;
-#pragma unroll
-    for (int i = 0; i < kBRows; ++i) {
-      const int r = row0 + i * kRowStep, n = n0 + r;
-      const bool ok = n < p.N;
-      dcae::cp_async16_zfill(
-          bs + r * kBKS,
-          ok ? p.w + (size_t)n * ldw + (size_t)kt * kBK + 4 * piece : p.w,
-          ok);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    dcae::cp_async_commit();
+    return;
   }
+
+  // ---- consumers: warpgroup wg owns rows 64 wg.. of the tile
+  if constexpr (T::kRebalance)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+  constexpr int ND = BN / 2;                  // accumulator registers
+  const int lane = tid & 31, warp = (tid / 32) & 3;
+  const int wm = wg * 64 + warp * 16;
+  // this lane's ldmatrix row: matrices (rows 0-7, k..k+3), (rows 8-15, k..),
+  // (rows 0-7, k+4..), (rows 8-15, k+4..) give A's four registers, its
+  // row's swizzle is lane % 8
+  const int a_row = (wm + (lane & 7) + ((lane >> 3) & 1) * 8) * kBK;
+  const int a_piece = lane >> 4, a_xor = lane & 7;
+  float acc[ND], part[ND];
+#pragma unroll
+  for (int e = 0; e < ND; ++e) acc[e] = part[e] = 0.f;
   for (int kt = 0; kt < ktiles; ++kt) {
-    dcae::cp_async_wait<S - 2>();
-    __syncthreads();    // slice kt landed; slice kt-1's stage is free
-    if (kt + S - 1 < ktiles) load(kt + S - 1, (kt + S - 1) % S);
-    dcae::cp_async_commit();
-    const float* as = As + (kt % S) * BM * kBKS;
-    const float* bs = Bs + (kt % S) * BN * kBKS;
+    const int s = kt % S;
+    mbar_wait(&full[s], (kt / S) & 1);
+    const uint8_t* st = ring + s * T::kStageBytes;
+    const float* as = reinterpret_cast<const float*>(st) + a_row;
+    const uint64_t dhi = sw128_desc(st + T::kABytes);
+    const uint64_t dlo = sw128_desc(st + T::kABytes + T::kBBytes);
 #pragma unroll
     for (int k0 = 0; k0 < kBK; k0 += 8 * kSteps) {
-      uint32_t ahi[kSteps][MT][4], alo[kSteps][MT][4];
-      uint32_t bhi[kSteps][NT][2], blo[kSteps][NT][2];
+      uint32_t ahi[kSteps][4], alo[kSteps][4];
 #pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        // fragments by ldmatrix, f32 as 4-byte elements: A matrices (rows
-        // 0-7, k..k+3), (rows 8-15, k..), (rows 0-7, k+4..), (rows 8-15,
-        // k+4..); B two n-tiles at once, (n 0-7, k..), (n 0-7, k+4..),
-        // (n 8-15, k..), (n 8-15, k+4..), and the last alone if NT is odd
-        const int kk = k0 + 8 * st;
-        uint32_t ar[MT][4], br[NT][2];
+      for (int j = 0; j < kSteps; ++j) {
+        uint32_t ar[4];
+        const int piece = (k0 + 8 * j) / 4 + a_piece;
+        dcae::ldmatrix_x4(ar, as + ((piece ^ a_xor) << 2));
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
-          dcae::ldmatrix_x4(ar[i], as + (wm + 16 * i + (lane & 7) +
-                                         ((lane >> 3) & 1) * 8) * kBKS +
-                                       kk + (lane >> 4) * 4);
-#pragma unroll
-        for (int j = 0; j + 1 < NT; j += 2) {
-          uint32_t t[4];
-          dcae::ldmatrix_x4(t, bs + (wn + 8 * j + (lane & 7) +
-                                     (lane >> 4) * 8) * kBKS +
-                                   kk + ((lane >> 3) & 1) * 4);
-          br[j][0] = t[0];
-          br[j][1] = t[1];
-          br[j + 1][0] = t[2];
-          br[j + 1][1] = t[3];
-        }
-        if (NT % 2)
-          ldmatrix_x2(br[NT - 1], bs + (wn + 8 * (NT - 1) + (lane & 7)) *
-                                           kBKS +
-                                      kk + ((lane >> 3) & 1) * 4);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            split_tf32(__uint_as_float(ar[i][e]), ahi[st][i][e],
-                       alo[st][i][e]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            split_tf32(__uint_as_float(br[j][e]), bhi[st][j][e],
-                       blo[st][j][e]);
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(ar[e]), ahi[j][e], alo[j][e]);
       }
       // the three products of each k-step (small terms first) sum in a
       // fresh partial over kSteps k-steps, added to the accumulator in f32
+      dcae::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int j = 0; j < kSteps; ++j) {
+        const int kd = (k0 + 8 * j) * 4 / 16;    // 16-byte units along K
+        Wgmma<BN>::mma(part, alo[j], dhi + kd, j > 0);
+        Wgmma<BN>::mma(part, ahi[j], dlo + kd, 1);
+        Wgmma<BN>::mma(part, ahi[j], dhi + kd, 1);
+      }
+      dcae::wgmma_commit();
+      dcae::wgmma_wait<0>();
+      fence_regs(part);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int st = 0; st < kSteps; ++st) {
-            mma_tf32_1688(part, alo[st][i], bhi[st][j]);
-            mma_tf32_1688(part, ahi[st][i], blo[st][j]);
-            mma_tf32_1688(part, ahi[st][i], bhi[st][j]);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
-        }
+      for (int e = 0; e < ND; ++e) acc[e] += part[e];
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);    // this warp is done with it
   }
-  dcae::cp_async_wait<0>();
 
+  const int g = lane >> 2, q = lane & 3;
   const bool pairs = (p.N & 1) == 0;    // n even: float2 stores aligned
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + wn + 8 * j + 2 * q;
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * q;
     if (n >= p.N) continue;
     const bool two = n + 1 < p.N;
     const float b0 = p.bias ? p.bias[n] : 0.f;
     const float b1 = p.bias && two ? p.bias[n + 1] : 0.f;
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + 16 * i + g + 8 * h;
-        if (m >= M) continue;
-        const float v0 = activate(acc[i][j][2 * h] + b0, p.act);
-        const float v1 = activate(acc[i][j][2 * h + 1] + b1, p.act);
-        float* o = p.out + (size_t)m * p.N + n;
-        if (two && pairs) {
-          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-        } else {
-          o[0] = v0;
-          if (two) o[1] = v1;
-        }
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + g + 8 * h;
+      if (m >= M) continue;
+      const float v0 = activate(acc[4 * j + 2 * h] + b0, p.act);
+      const float v1 = activate(acc[4 * j + 2 * h + 1] + b1, p.act);
+      float* o = p.out + (size_t)m * p.N + n;
+      if (two && pairs) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (two) o[1] = v1;
       }
+    }
   }
 }
 
-template <int BM, int BN, int WM, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-conv2d_nhwc_tf32x3_kernel(const Conv p) {
-  conv_tile<BM, BN, WM, kVec, 0>(p);
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+conv2d_nhwc_tf32x3_kernel(const Conv p, const __grid_constant__ CUtensorMap xa,
+                          const __grid_constant__ CUtensorMap whi,
+                          const __grid_constant__ CUtensorMap wlo) {
+  conv_tile<T, kVec, 0>(p, &xa, &whi, &wlo);
 }
 
-template <int BM, int BN, int WM, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-conv2d_nhwc_k5_tf32x3_kernel(const Conv p) {
-  conv_tile<BM, BN, WM, kVec, 5>(p);
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+conv2d_nhwc_k5_tf32x3_kernel(const Conv p,
+                             const __grid_constant__ CUtensorMap xa,
+                             const __grid_constant__ CUtensorMap whi,
+                             const __grid_constant__ CUtensorMap wlo) {
+  conv_tile<T, kVec, 5>(p, &xa, &whi, &wlo);
 }
 
-// The tile shapes, by index (the wrapper's TILES lists the same):
-//   0: 96 x 224 (2 x 4 warps of 48 x 56)   the slice nets' first layer
-//   1: 96 x 128 (2 x 4 warps of 48 x 32)
-//   2: 96 x 64  (2 x 4 warps of 48 x 16)
-//   3: 64 x 64  (2 x 4 warps of 32 x 16)   small calls
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
 
-template <int BM, int BN, int WM, bool kVec>
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault) != cudaSuccess)
+      f = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// The rows x cols f32 matrix at a (rows `ld` floats apart, 16-byte
+// aligned) as TMA boxes of 32 columns x `box_rows` rows in the 128-byte
+// swizzle; columns past `cols` and rows outside [0, rows) read as zeros.
+int tile_map(CUtensorMap* map, const float* a, long long rows, int cols,
+             long long ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(a), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The tile shapes, by index (the wrapper's TILES lists the same, BM x BN):
+//   0: 192 x 112, three consumer warpgroups   the slice nets' first layer
+//   1: 192 x 64
+//   2:  64 x 64, one consumer warpgroup, two blocks an SM   small M
+//   3:  64 x 32                                             narrow calls
+
+template <typename T, bool kVec>
 struct Kernel {
-  static constexpr size_t kSmem = Tile<BM, BN, WM>::kSmem;
-
   // the kernel of a call: the 5x5 one for k = 5
-  static void (*pick(int k))(const Conv) {
-    return k == 5 ? conv2d_nhwc_k5_tf32x3_kernel<BM, BN, WM, kVec>
-                  : conv2d_nhwc_tf32x3_kernel<BM, BN, WM, kVec>;
+  static void (*pick(int k))(const Conv, const CUtensorMap, const CUtensorMap,
+                             const CUtensorMap) {
+    return k == 5 ? conv2d_nhwc_k5_tf32x3_kernel<T, kVec>
+                  : conv2d_nhwc_tf32x3_kernel<T, kVec>;
   }
 
-  static int launch(const Conv& p, cudaStream_t stream) {
+  static int launch(const Conv& p, const float* whi, const float* wlo,
+                    cudaStream_t stream) {
+    const int taps = p.k == 5 && p.odd ? 12 : p.k * p.k;
+    const long long M = (long long)p.B * p.H * p.W;
+    CUtensorMap mx{}, mhi, mlo;
+    int err = tile_map(&mhi, whi, p.N, taps * p.Cp, taps * p.Cp, T::BN);
+    if (!err) err = tile_map(&mlo, wlo, p.N, taps * p.Cp, taps * p.Cp, T::BN);
+    if (!err && kVec) err = tile_map(&mx, p.x, M, p.C, p.ldx, T::BM);
+    if (err) return err;
     const auto fn = pick(p.k);
     // raises the kernel's shared-memory limit to what it asks for
-    const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-    if (err != cudaSuccess) return (int)err;
-    const long long M = (long long)p.B * p.H * p.W;
-    const dim3 grid((unsigned)((M + BM - 1) / BM),
-                    (unsigned)((p.N + BN - 1) / BN));
-    fn<<<grid, kThreads, kSmem, stream>>>(p);
+    err = (int)cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+    if (err) return err;
+    const dim3 grid((unsigned)((M + T::BM - 1) / T::BM),
+                    (unsigned)((p.N + T::BN - 1) / T::BN));
+    fn<<<grid, T::kThreads, T::kSmem, stream>>>(p, mx, mhi, mlo);
     return (int)cudaGetLastError();
   }
 };
@@ -354,10 +621,10 @@ struct Kernel {
 template <bool kVec, typename F, typename R>
 R with_tile(int tile, F f, R none) {
   switch (tile) {
-    case 0: return f(Kernel<96, 224, 2, kVec>{});
-    case 1: return f(Kernel<96, 128, 2, kVec>{});
-    case 2: return f(Kernel<96, 64, 2, kVec>{});
-    case 3: return f(Kernel<64, 64, 2, kVec>{});
+    case 0: return f(Kernel<Tile<3, 112>, kVec>{});
+    case 1: return f(Kernel<Tile<3, 64>, kVec>{});
+    case 2: return f(Kernel<Tile<1, 64>, kVec>{});
+    case 3: return f(Kernel<Tile<1, 32>, kVec>{});
     default: return none;
   }
 }
@@ -372,24 +639,26 @@ R with_kernel(int tile, int vec, F f, R none) {
 extern "C" {
 
 // x: (B, H, W) pixels `ldx` floats apart, C channels each (a channels-last
-// view: ldx >= C); w: the weight packed as (N, taps, Cp), Cp = C rounded
-// up to 32, zeros past C; bias: (N) or null; out: (B, H, W, N) contiguous.
-// k is 1, 3 or 5 (padding k / 2); odd 1 (5x5 only): the taps are the 12
-// with r + s odd, in order, else all k * k. act 0 none, 1 GELU (exact
-// erf), 2 ReLU. vec: 16-byte loads of x (C and ldx multiples of 4, x
-// 16-byte aligned); w 16-byte aligned. Returns the CUDA error of the
-// launch.
-int dcae_conv2d_nhwc(const void* x, const void* w, const void* bias,
-                     void* out, int B, int H, int W, int C, int ldx, int N,
-                     int k, int odd, int Cp, int act, int tile, int vec,
-                     void* stream) {
-  const Conv p{(const float*)x, (const float*)w, (const float*)bias,
-               (float*)out, B, H, W, C, ldx, N, k, Cp, act, odd};
+// view: ldx >= C); whi, wlo: the weight packed as (N, taps, Cp), Cp = C
+// rounded up to 32, zeros past C, and split into its tf32 hi and the rest
+// (split_tf32), 16-byte aligned; bias: (N) or null; out: (B, H, W, N)
+// contiguous. k is 1, 3 or 5 (padding k / 2); odd 1 (5x5 only): the taps
+// are the 12 with r + s odd, in order, else all k * k. act 0 none, 1 GELU
+// (exact erf), 2 ReLU. vec: 16-byte loads of x (C and ldx multiples of 4,
+// x 16-byte aligned). Returns the CUDA error of the launch.
+int dcae_conv2d_nhwc(const void* x, const void* whi, const void* wlo,
+                     const void* bias, void* out, int B, int H, int W, int C,
+                     int ldx, int N, int k, int odd, int Cp, int act,
+                     int tile, int vec, void* stream) {
+  const Conv p{(const float*)x, (const float*)bias, (float*)out, B, H, W,
+               C, ldx, N, k, Cp, act, odd};
   if ((k != 1 && k != 3 && k != 5) || (odd != 0 && (odd != 1 || k != 5)) ||
-      Cp % kBK || Cp < C || act < 0 || act > 2)
+      Cp % kBK || Cp < C || act < 0 || act > 2 ||
+      ((uintptr_t)whi | (uintptr_t)wlo) % 16)
     return (int)cudaErrorInvalidValue;
   return with_kernel(tile, vec, [&](auto kern) {
-    return kern.launch(p, (cudaStream_t)stream);
+    return kern.launch(p, (const float*)whi, (const float*)wlo,
+                       (cudaStream_t)stream);
   }, (int)cudaErrorInvalidValue);
 }
 

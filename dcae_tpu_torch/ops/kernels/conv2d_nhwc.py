@@ -3,10 +3,10 @@ bias and the activation after it, in f32, at inference.
 
 It replaces no TPU kernel: the JAX package leaves its convolutions to XLA.
 `conv2d_nhwc` launches the CUDA kernel (csrc/conv2d_nhwc.cu: an implicit
-GEMM in 3xTF32 on the tensor cores; 5x5 in a kernel of its own name) for
-CUDA tensors and runs `conv2d_nhwc_ref`, the plain statement the layers
-ran before it (F.conv2d on the channels-last view, then the activation),
-for CPU tensors.
+GEMM in 3xTF32 on Hopper's warpgroup products; 5x5 in a kernel of its own
+name) for CUDA tensors and runs `conv2d_nhwc_ref`, the plain statement the
+layers ran before it (F.conv2d on the channels-last view, then the
+activation), for CPU tensors.
 
 `routes` is where the model sends a convolution here: f32, stride 1,
 groups 1, kernel 1x1 or 3x3 (5x5 too where the layer asks: ELIC's
@@ -20,8 +20,10 @@ were zero. The kernel runs those 12 alone; the plain statement convolves
 with the weight masked so (`masked_weight`).
 
 The weight is packed once for the kernel, (C_out, taps, C_in rounded up
-to 32) with zeros past C_in, and the packed (or masked) copy kept until
-the weight changes (its version counter or storage): see `packed_weight`.
+to 32) with zeros past C_in, and split there into its tf32 hi and the
+rest lo (the kernel splits only x); both halves (or the masked weight) are
+kept until the weight changes (its version counter or storage): see
+`packed_weight`.
 """
 
 from __future__ import annotations
@@ -46,11 +48,15 @@ TAPS = {"all": 0, "odd": 1}
 K_SLICE = 32      # K columns a stage of the kernel: the packed C_in multiple
 
 # The kernel's tile shapes (BM, BN), by the index csrc/conv2d_nhwc.cu gives
-# them, and the device time of a tile's output element relative to the
-# others, K for K: a larger tile loads less a product (measured on an H100
-# at the slice nets' and the dictionary attention's shapes).
-TILES = ((96, 224), (96, 128), (96, 64), (64, 64))
-TILE_COST = (1.0, 1.13, 1.25, 1.3)
+# them: BM is 64 rows a consumer warpgroup. TILE_BLOCKS: the blocks of a
+# tile an SM holds at once (one consumer warpgroup: two).
+# TILE_COST: the device time of a tile's output element relative to the
+# others, K for K, with its SMs shared as TILE_BLOCKS says (fitted to every
+# tile's time at the three codec cells' shapes on an H100: its picks take
+# at most 0.12 ms a pass more than the fastest tile at each would).
+TILES = ((192, 112), (192, 64), (64, 64), (64, 32))
+TILE_BLOCKS = (1, 1, 2, 2)
+TILE_COST = (1.0, 1.2, 1.35, 1.5)
 
 
 def routes(conv: nn.Conv2d, x: torch.Tensor, sizes=(1, 3)) -> bool:
@@ -93,20 +99,22 @@ def conv2d_nhwc_ref(x, weight, bias, *, act: str = "none",
 @functools.cache
 def _entry():
     lib = _build.load_kernel("conv2d_nhwc")
-    return _build.bind(lib, "dcae_conv2d_nhwc", 4, 12)
+    return _build.bind(lib, "dcae_conv2d_nhwc", 5, 12)
+
 
 
 @functools.lru_cache(maxsize=1024)
 def pick_tile(M: int, N: int, sms: int) -> int:
     """The tile shape of a call of M output pixels and N channels on a card
-    of `sms` SMs: the least estimated time, the tiles an SM runs in turn
-    (ceil(tiles / sms)) times a tile's work at its relative cost. Each
-    output's sum runs in the same order whatever the tile, so the choice
-    changes no result."""
+    of `sms` SMs: the least estimated time, the rounds of tiles an SM runs
+    (ceil(tiles / (sms x TILE_BLOCKS))), each TILE_BLOCKS tiles' work at
+    their relative cost. Each output's sum runs in the same order whatever
+    the tile, so the choice changes no result."""
     def cost(t):
         bm, bn = TILES[t]
         tiles = math.ceil(M / bm) * math.ceil(N / bn)
-        return math.ceil(tiles / sms) * bm * bn * TILE_COST[t], t
+        rounds = math.ceil(tiles / (sms * TILE_BLOCKS[t]))
+        return rounds * TILE_BLOCKS[t] * bm * bn * TILE_COST[t], t
     return min(cost(t) for t in range(len(TILES)))[1]
 
 
@@ -131,21 +139,30 @@ def _kept_copy(weight: torch.Tensor, what: tuple, make) -> torch.Tensor:
     return copies[1][what]
 
 
-def pack_weight(weight: torch.Tensor, taps: str = "all") -> torch.Tensor:
-    """(C_out, C_in, k, k) -> (C_out, taps, C_in rounded up to K_SLICE),
-    zeros past C_in: the kernel's K order, tap by tap, over the taps
-    `taps` names (row-major)."""
+def split_tf32(t: torch.Tensor) -> tuple:
+    """(hi, lo) of an f32 tensor, as the kernel's split_tf32: hi is t with
+    its low 13 mantissa bits cleared (a tf32 value), lo = t - hi, exact."""
+    hi = (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, t - hi
+
+
+def pack_weight(weight: torch.Tensor, taps: str = "all") -> tuple:
+    """(C_out, C_in, k, k) -> (hi, lo), each (C_out, taps, C_in rounded up
+    to K_SLICE), zeros past C_in: the kernel's K order, tap by tap, over the
+    taps `taps` names (row-major), split by split_tf32 (hi + lo is the
+    weight exactly)."""
     c_out, c_in, k, _ = weight.shape
     w = weight.detach().permute(0, 2, 3, 1).reshape(c_out, k * k, c_in)
     if taps != "all":
         w = w[:, tap_mask(k, taps).reshape(-1).nonzero().reshape(-1)
               .to(w.device)]
-    return F.pad(w, (0, -(-c_in // K_SLICE) * K_SLICE - c_in)).contiguous()
+    w = F.pad(w, (0, -(-c_in // K_SLICE) * K_SLICE - c_in)).contiguous()
+    return split_tf32(w)
 
 
-def packed_weight(weight: torch.Tensor, taps: str = "all") -> torch.Tensor:
-    """pack_weight(weight, taps), kept beside the weight until it
-    changes."""
+def packed_weight(weight: torch.Tensor, taps: str = "all") -> tuple:
+    """pack_weight(weight, taps), both halves kept beside the weight until
+    it changes."""
     return _kept_copy(weight, ("packed", taps),
                       lambda w: pack_weight(w, taps))
 
@@ -197,7 +214,7 @@ def launch(x, weight, bias, *, act: str, taps: str = "all") -> torch.Tensor:
         ldx = s[2]
     else:
         x, ldx = x.contiguous(), C
-    wp = packed_weight(weight, taps)
+    whi, wlo = packed_weight(weight, taps)
     if bias is not None:
         bias = bias.contiguous()
     vec = int(C % 4 == 0 and ldx % 4 == 0 and x.data_ptr() % 16 == 0)
@@ -206,11 +223,12 @@ def launch(x, weight, bias, *, act: str, taps: str = "all") -> torch.Tensor:
     fn = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), wp.data_ptr(),
+        rc = fn(x.data_ptr(), whi.data_ptr(), wlo.data_ptr(),
                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                B, H, W, C, ldx, N, k, TAPS[taps], wp.shape[-1],
+                B, H, W, C, ldx, N, k, TAPS[taps], whi.shape[-1],
                 _ACT_CODE[act], tile, vec, stream)
     _build.check(rc, "conv2d_nhwc")
+    conv2d_nhwc.tile_launches[tile] += 1
     return out
 
 
@@ -221,7 +239,8 @@ def conv2d_nhwc(x, weight, bias=None, *, act: str = "none",
     over the taps `taps` names ("odd": the checkerboard mask, 5x5 only).
     CPU tensors run conv2d_nhwc_ref; CUDA tensors launch the kernel or
     raise, also where a gradient is wanted (the kernel has none: `routes`
-    sends such calls to cuDNN). `launches` counts kernel launches."""
+    sends such calls to cuDNN). `launches` counts kernel launches, and
+    `tile_launches` the launches of each tile of TILES, by index."""
     if x.device.type == "cpu":
         return conv2d_nhwc_ref(x, weight, bias, act=act, taps=taps)
     if wants_grad((x, weight, bias)):
@@ -238,3 +257,4 @@ def conv2d_nhwc(x, weight, bias=None, *, act: str = "none",
 
 
 conv2d_nhwc.launches = 0
+conv2d_nhwc.tile_launches = [0] * len(TILES)

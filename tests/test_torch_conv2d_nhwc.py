@@ -175,32 +175,79 @@ def test_routes_takes_only_f32_stride1_1x1_3x3_without_grad(case):
         assert cv.routes(conv, x) == case.get("ok", False)
 
 
-@pytest.mark.parametrize("c_in,k", [(6, 3), (32, 3), (40, 1), (64, 1)])
+@pytest.mark.parametrize("c_in,k", [(6, 3), (32, 3), (40, 1), (64, 1),
+                                    (213, 5)])
 def test_packed_weight_is_the_kernels_k_order(c_in, k):
-    """(C_out, k * k, C_in rounded up to 32): tap by tap, then channel,
-    zeros past C_in; kept until the weight changes in place."""
-    w = torch.randn(5, c_in, k, k)
-    p = cv.packed_weight(w)
+    """Two halves, each (C_out, k * k, C_in rounded up to 32): tap by tap,
+    then channel, zeros past C_in. hi is a tf32 value (its low 13 mantissa
+    bits zero), hi + lo is the weight exactly in f32; both are kept until
+    the weight changes in place, then made anew."""
+    w = torch.randn(5, c_in, k, k, generator=torch.Generator().manual_seed(5))
+    hi, lo = p = cv.packed_weight(w)
     cp = -(-c_in // 32) * 32
-    assert p.shape == (5, k * k, cp) and p.is_contiguous()
+    for half in p:
+        assert half.shape == (5, k * k, cp) and half.is_contiguous()
+        assert half.dtype == torch.float32
+        assert not half[:, :, c_in:].any()
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert lo.abs().max() <= 2.0 ** -10 * hi.abs().max()
     for r in range(k):
         for s in range(k):
-            assert torch.equal(p[:, r * k + s, :c_in], w[:, :, r, s])
-    assert not p[:, :, c_in:].any()
+            assert torch.equal(hi[:, r * k + s, :c_in] + lo[:, r * k + s,
+                                                              :c_in],
+                               w[:, :, r, s])
     assert cv.packed_weight(w) is p
     with torch.no_grad():
-        w.mul_(2)
-    assert torch.equal(cv.packed_weight(w), 2 * p)
+        w.mul_(3)
+    hi3, lo3 = cv.packed_weight(w)
+    assert hi3 is not hi and lo3 is not lo
+    assert torch.equal(hi3 + lo3, cv.pack_weight(w)[0] + cv.pack_weight(w)[1])
+    assert torch.equal((hi3 + lo3)[:, :, :c_in],
+                       3 * (hi + lo)[:, :, :c_in])
 
 
+@pytest.mark.parametrize("value", [1.0, -1.5, 1 + 2.0 ** -12, 3e-39, 0.1,
+                                   -7.123456e5])
+def test_split_tf32_is_the_kernels_split(value):
+    """hi keeps the sign, exponent and top 10 mantissa bits; lo = v - hi,
+    exact: as the kernel's split_tf32 on the card."""
+    v = torch.tensor([value], dtype=torch.float32)
+    hi, lo = cv.split_tf32(v)
+    bits = v.view(torch.int32)
+    assert torch.equal(hi.view(torch.int32), bits & ~0x1FFF)
+    assert torch.equal(hi + lo, v)
+    assert torch.equal(lo, v - hi)
+
+
+# (M, N): shapes of the codec cells (batch 8 of 768 x 512: the latent at
+# 32 x 48, the hyper synthesis at 16 x 24) and the tile picked there
 @pytest.mark.parametrize("M,N,tile", [
-    (12288, 224, (96, 224)),    # the slice nets' first layers
-    (12288, 128, (96, 128)),    # their second
-    (12288, 64, (96, 64)),      # their third
-    (12288, 640, (96, 224)),    # the dictionary attention's 1x1s
-    (3072, 96, (64, 64)),       # the hyper synthesis at 16 x 24
-    (3072, 192, (96, 64))])
+    (12288, 224, (192, 112)),   # the slice nets' first layers
+    (12288, 128, (192, 64)),    # their second
+    (12288, 64, (64, 64)),      # their third; TCM's SWAtten convolutions
+    (12288, 640, (192, 112)),   # the dictionary attention's 1x1s
+    (12288, 32, (64, 32)),      # ELIC's first channel and spatial contexts
+    (3072, 96, (64, 32)),       # the hyper synthesis's 192 -> 96 1x1
+    (3072, 192, (64, 64))])     # its stack's 3x3
 def test_pick_tile_at_the_codec_cells_shapes(M, N, tile):
-    """On a 132-SM H100, the tile the kernel was fastest with at each shape
-    of the codec cell (batch 8 of 768 x 512)."""
+    """On a 132-SM H100, the tile picked at each shape: the one of the five
+    the kernel was fastest with there (every tile timed on an H100)."""
     assert cv.TILES[cv.pick_tile(M, N, 132)] == tile
+
+
+def test_slice_conv1_fills_the_card_in_one_wave():
+    """The slice nets' first layers (M 12,288, N 224) make at most one tile
+    an SM of a 132-SM H100."""
+    bm, bn = cv.TILES[cv.pick_tile(12288, 224, 132)]
+    assert -(-12288 // bm) * -(-224 // bn) <= 132
+
+
+def test_tiles_are_warpgroup_shapes():
+    """Each tile is 64 rows a consumer warpgroup, at most three of them, and
+    a wgmma width (a multiple of 8 up to 112: an accumulator and a partial
+    of BN / 2 registers each); TILE_COST gives each a cost."""
+    assert len(cv.TILE_COST) == len(cv.TILES)
+    for bm, bn in cv.TILES:
+        assert bm in (64, 128, 192) and bn % 8 == 0 and 8 <= bn <= 112
+    assert all(c > 0 for c in cv.TILE_COST)
+    assert len(set(cv.TILES)) == len(cv.TILES)

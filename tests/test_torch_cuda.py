@@ -1168,6 +1168,43 @@ def test_conv2d_nhwc_any_shape(card, no_tf32, case, act):
 
 
 @pytest.mark.cuda
+def test_conv2d_nhwc_against_f64_at_the_slice_conv1(card, no_tf32):
+    """The slice nets' first layer at its widest (C_in 1280, 3x3: K 11,520,
+    N 224, batch 8 of the 32 x 48 latent): within 2e-6 of max|f64| of the
+    statement in f64. The partial of kSteps k-steps keeps the tensor
+    cores' truncating sum off the running total."""
+    rng = np.random.default_rng(44)
+    x, w, bias = _conv_args(rng, (8, 32, 48), 1280, 224, 3)
+    with torch.no_grad():
+        got = cv.conv2d_nhwc(x, w, bias, act="gelu")
+        f64 = cv.conv2d_nhwc_ref(x.double(), w.double(), bias.double(),
+                                 act="gelu")
+    assert _rel_err(got.double(), f64) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", range(len(cv.TILES)))
+def test_conv2d_nhwc_every_tile(card, no_tf32, tile, monkeypatch):
+    """Each tile, forced, at an M and an N that fill no whole tile (M = 2 x
+    13 x 17, N 2 x BN + 3), C_in not a multiple of 32, 3x3: within 1e-5 of
+    max|plain|, bitwise repeatable, and bitwise the tile the wrapper
+    picks: the sum order is the tile's no more than the batch's."""
+    bm, bn = cv.TILES[tile]
+    rng = np.random.default_rng(45)
+    x, w, bias = _conv_args(rng, (2, 13, 17), 72, 2 * bn + 3, 3)
+    with torch.no_grad():
+        picked = cv.conv2d_nhwc(x, w, bias, act="gelu")
+        monkeypatch.setattr(cv, "pick_tile", lambda *call: tile)
+        before = list(cv.conv2d_nhwc.tile_launches)
+        got = cv.conv2d_nhwc(x, w, bias, act="gelu")
+        assert cv.conv2d_nhwc.tile_launches[tile] == before[tile] + 1
+        want = cv.conv2d_nhwc_ref(x, w, bias, act="gelu")
+        assert _rel_err(got, want) <= 1e-5
+        assert torch.equal(got, cv.conv2d_nhwc(x, w, bias, act="gelu"))
+    assert torch.equal(got, picked)
+
+
+@pytest.mark.cuda
 def test_conv2d_nhwc_refuses(card):
     rng = np.random.default_rng(42)
     x, w, bias = _conv_args(rng, (1, 4, 4), 8, 8, 3)

@@ -150,13 +150,13 @@ def test_packed_weight_of_the_checkerboard_taps():
     kept until the weight changes; the plain statement's masked copy
     too."""
     w = torch.randn(5, 6, 5, 5)
-    p = cv.packed_weight(w, "odd")
-    assert p.shape == (5, 12, 32)
+    hi, lo = p = cv.packed_weight(w, "odd")
+    assert hi.shape == lo.shape == (5, 12, 32)
     odd = [(r, s) for r in range(5) for s in range(5) if (r + s) % 2]
     for t, (r, s) in enumerate(odd):
-        assert torch.equal(p[:, t, :6], w[:, :, r, s])
+        assert torch.equal(hi[:, t, :6] + lo[:, t, :6], w[:, :, r, s])
     assert cv.packed_weight(w, "odd") is p
-    assert cv.packed_weight(w).shape == (5, 25, 32)
+    assert cv.packed_weight(w)[0].shape == (5, 25, 32)
     m = cv.masked_weight(w, "odd")
     assert cv.masked_weight(w, "odd") is m
     assert torch.equal(m, w * cv.tap_mask(5, "odd"))
